@@ -7,16 +7,32 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: name, power limit, torch and CUDA versions;
-2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``;
-3. each dense intersection kernel against its plain PyTorch version on the
-   card: simple_box's 12 triangles at 1,048,576 rays, a 4095-triangle soup
-   at 65,536 rays, rays aimed at shared edges and vertices, and shadow
-   distances at 0.5x, 1x, 2x and within 1e-4 of the hit distance; with the
-   device time of each, from the profiler's CUDA trace;
-4. the slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))`` on
-   the card, with the kernel launch counts of that run;
+2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``
+   and ``cluster_walk.cu``, one process each, started together;
+3. each dense intersection kernel (K1, K2) against its plain PyTorch
+   version on the card: simple_box's 12 triangles at 1,048,576 rays, a
+   4095-triangle soup at 65,536 rays, rays aimed at shared edges and
+   vertices, and shadow distances at 0.5x, 1x, 2x and within 1e-4 of the
+   hit distance; with the device time of each, from the profiler's CUDA
+   trace;
+4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
+   on the card, with the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
-   (``tests/data/torch_simple_box_jax_ref.npy``) against that image.
+   (``tests/data/torch_simple_box_jax_ref.npy``) against that image;
+6. each cluster kernel (K5 nearest, K6 any hit, K7 transmittance) against
+   its plain version: sphere_showcase (100,356 triangles) at 65,536 camera
+   and random bounce rays, terrain (1,048,354 triangles) at 16,384, and a
+   sphere_showcase bounce wavefront of 262,144 rays taken from a render;
+   the same shadow distances, and for K7 a table whose alphas are drawn
+   from {0.3, 0.85, 1.0}; with each kernel's device time at the bounce
+   wavefront, its ray/triangle tests per ray and its bound;
+7. the mesh-scale slice: ``render(sphere_showcase(512, 512),
+   RenderOptions(spp=16))``, ``terrain(512, 512, nx=724, nz=724)`` at 4 spp
+   and the translucent showcase (the sphere at alpha 0.5) at 256^2 x 4 spp
+   with ``alpha_shadows``, each with its exact launch counts;
+8. the mesh-scale renders at the stored JAX references' size against
+   those images (``tests/data/torch_*_jax_ref.npy``, made by
+   ``tests/data/make_torch_mesh_refs.py``).
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -24,6 +40,7 @@ exits with code 1 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,22 +52,46 @@ import torch
 
 REF_IMAGE = "tests/data/torch_simple_box_jax_ref.npy"
 REF_SIZE, REF_SPP, REF_SEED = (24, 20), 4, 3   # how the reference was made
-SOURCE = "tuturenderer_tpu_torch/csrc/dense_intersect.cu"
+SOURCES = {"nearest": "tuturenderer_tpu_torch/csrc/dense_intersect.cu",
+           "anyhit": "tuturenderer_tpu_torch/csrc/dense_intersect.cu",
+           "cluster_nearest": "tuturenderer_tpu_torch/csrc/cluster_walk.cu",
+           "cluster_anyhit": "tuturenderer_tpu_torch/csrc/cluster_walk.cu",
+           "cluster_transmit": "tuturenderer_tpu_torch/csrc/cluster_walk.cu"}
 REPLACES = {"nearest": "tuturenderer_tpu/ops/pallas/intersect.py:164",
-            "anyhit": "tuturenderer_tpu/ops/pallas/intersect.py:218"}
-KERNEL_NAMES = {"nearest": "woop_nearest", "anyhit": "woop_anyhit"}
+            "anyhit": "tuturenderer_tpu/ops/pallas/intersect.py:218",
+            "cluster_nearest": "tuturenderer_tpu/ops/pallas/cluster.py:509",
+            "cluster_anyhit": "tuturenderer_tpu/ops/pallas/cluster.py:518",
+            "cluster_transmit": "tuturenderer_tpu/ops/pallas/cluster.py:526"}
+KERNEL_NAMES = {"nearest": "woop_nearest", "anyhit": "woop_anyhit",
+                "cluster_nearest": "cluster_nearest",
+                "cluster_anyhit": "cluster_anyhit",
+                "cluster_transmit": "cluster_transmit"}
+# H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM bytes/s and
+# fp32 flop/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+FLOP_PER_TEST = 30      # one ray/triangle test: ~30 fp32 operations
+SHADOW_DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
+                (1.0, -5e-5), (1.0, 2e-4), (1.0, -2e-4))
+# the mesh-scale references: name -> (scene, RenderOptions fields), as in
+# tests/torch_port_util.py MESH_CASES (tests/data/make_torch_mesh_refs.py)
+MESH_REFS = {"showcase-mis": ("showcase", {}),
+             "showcase-nee": ("showcase", {"mis": False}),
+             "translucent-alpha": ("translucent", {"alpha_shadows": True}),
+             "box-nee": ("box", {"mis": False}),
+             "box-alpha": ("box", {"alpha_shadows": True})}
 
 
 def log(msg: str):
     print(msg, flush=True)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
     """Mean device time of one call: the device time of every kernel the
     call launches, from the profiler's CUDA trace (host overhead left out;
     the kernels are far shorter than a launch from Python)."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -184,18 +225,21 @@ def phase_device():
 def phase_build():
     log("== phase 2: build")
     from tuturenderer_tpu_torch.ops.cuda import build
+    names = ("dense_intersect", "cluster_walk")
     t0 = time.perf_counter()
-    build.load("dense_intersect")
+    build.load_all(names)
     secs = time.perf_counter() - t0
-    if "dense_intersect" in build.BUILD_LOG:
-        nvcc_s, out = build.BUILD_LOG["dense_intersect"]
-        log(f"nvcc {' '.join(build.NVCC_FLAGS)}: built in {nvcc_s:.2f} s")
+    for name in names:
+        if name not in build.BUILD_LOG:
+            log(f"library already built: {build.library_path(name)}")
+            continue
+        nvcc_s, out = build.BUILD_LOG[name]
+        log(f"nvcc {' '.join(build.NVCC_FLAGS)} {name}.cu: built in "
+            f"{nvcc_s:.2f} s")
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {line.strip()}")
-    else:
-        log(f"library already built: {build.library_path('dense_intersect')}")
-    log(f"load: {secs:.2f} s")
+    log(f"build and load, all sources: {secs:.2f} s")
 
 
 def phase_kernels(dev):
@@ -224,6 +268,7 @@ def phase_kernels(dev):
     assert o.shape[0] == 1 << 20
     times["simple_box"] = compare_kernels("simple_box 12 tris", table, o, d,
                                           report)
+    bounds = dense_bounds(table, o, d)
 
     # rays at shared edges and vertices
     eye = torch.stack(list(cam.position)).to(dev)
@@ -242,7 +287,42 @@ def phase_kernels(dev):
     d = random_unit(65536, gen, dev)
     times["soup"] = compare_kernels("soup 4095 tris", pack_triangles_woop(soup),
                                     o, d, report)
-    return report, times
+    return report, times, bounds
+
+
+def bound(name: str, n_bytes: float, tests: float):
+    """(bound ms, what bounds it): the larger of the bytes over the HBM
+    rate and the tests' fp32 operations over the fp32 peak."""
+    byte_ms = n_bytes / PEAK_BYTES * 1e3
+    op_ms = tests * FLOP_PER_TEST / PEAK_FP32 * 1e3
+    by = "bytes" if byte_ms >= op_ms else "operations"
+    log(f"  {name} bound: {n_bytes / 1e6:.2f} MB -> {byte_ms:.5f} ms, "
+        f"{tests:.4g} tests x {FLOP_PER_TEST} flop -> {op_ms:.5f} ms; "
+        f"bound by {by}")
+    return max(byte_ms, op_ms), by
+
+
+def dense_bounds(table, o, d) -> dict:
+    """K1/K2 bounds at the simple_box 1M-ray set: rays read once (24 bytes,
+    28 with dist), results written once (16, 4), the table once; tests:
+    every triangle for K1, up to the first blocker for K2 (at 2x the hit
+    distance, the timed set)."""
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    rays = cols(o) + cols(d)
+    n, n_tris = o.shape[0], table.shape[0] // K.TRI_FLOATS
+    t, idx, _, _ = K.tri_intersect_plain(table, *rays)
+    dist = torch.where(idx >= 0, t, torch.full_like(t, 10.0)) * 2.0
+    tt, _, _, ok = K._woop_tile(table.reshape(-1, K.TRI_FLOATS),
+                                *[c[:, None] for c in rays])
+    d2 = dist[:, None]
+    ok = ok & (tt < d2) & ((tt - d2).abs() >= K.PARALLEL_EPS)
+    first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1,
+                        torch.full_like(idx, n_tris, dtype=torch.int64))
+    tbytes = table.numel() * 4
+    return {"nearest": bound("K1 simple_box 1M", n * 40 + tbytes,
+                             n * n_tris),
+            "anyhit": bound("K2 simple_box 1M", n * 32 + tbytes,
+                            float(first.sum()))}
 
 
 def phase_slice(dev):
@@ -268,20 +348,23 @@ def phase_slice(dev):
     launches = dict(LAUNCHES)
 
     per_sample = {"nearest": opts.max_depth + 2, "anyhit": opts.max_depth + 1}
-    log(f"launches: {launches} (straight port expects "
-        f"{ {k: v * opts.spp for k, v in per_sample.items()} })")
-    for k, v in per_sample.items():
-        if launches[k] != v * opts.spp:
-            raise AssertionError(f"{k}: {launches[k]} launches, expected "
-                                 f"{v * opts.spp}")
+    check_launches(launches, {k: v * opts.spp for k, v in per_sample.items()})
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("render produced non-finite pixels")
     if tuple(img.shape) != (1024, 1024, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
 
-    # live-lane fractions per bounce from one sample at every 4th pixel:
-    # 2 rays (intersection + shadow) per live lane and bounce, 1 for the
-    # epilogue's pending lanes (the accounting of bench.py)
+    report_render(scene, cam, opts, img, wall, dev)
+    return launches
+
+
+def report_render(scene, cam, opts, img, wall: float, dev):
+    """Log wall time, image mean and rays/s of a render. Live-lane fractions
+    per bounce come from one sample at every 4th pixel: 2 rays
+    (intersection + shadow) per live lane and bounce, 1 for the epilogue's
+    pending lanes (the accounting of bench.py)."""
+    from tuturenderer_tpu_torch.camera import primary_ray
+    from tuturenderer_tpu_torch.integrators.path import trace_rays
     lane = torch.arange(0, cam.n_pixels, 4, dtype=torch.int32, device=dev)
     o, d, _ = primary_ray(cam, lane % cam.width, lane // cam.width)
     _, counts = trace_rays(scene, cam, o, d, lane, 0, 0, opts,
@@ -295,27 +378,310 @@ def phase_slice(dev):
         f"total rays/s={primary * rays_per_path / wall / 1e6:.2f} M  "
         f"(rays/path={rays_per_path:.4f}, live fractions="
         f"{np.round(fracs, 4).tolist()})")
-    return launches
+
+
+def check_launches(got: dict, want: dict):
+    """Every kernel's launches in a run equal ``want`` (0 where absent)."""
+    want = {k: want.get(k, 0) for k in got}
+    log(f"launches: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+
+
+def against_reference(name: str, scene, cam, opts, path: str):
+    """Render at the reference's size, spp and seed on the card and hold
+    the image to the stored JAX render at the CPU tests' bar."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               path))
+    img = render(scene, cam, opts, seed=REF_SEED).cpu().numpy()
+    close = np.isclose(img, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+    rel_mean = abs(img.mean() - ref.mean()) / ref.mean()
+    log(f"{name}: pixels within rtol 1e-4 / atol 1e-5: "
+        f"{close.mean() * 100:.2f}% (CPU test bar 99%), image mean "
+        f"{img.mean():.6f} vs {ref.mean():.6f} (rel {rel_mean:.2e}, bar "
+        f"0.5%); no widening")
+    if close.mean() < 0.99 or rel_mean > 0.005:
+        raise AssertionError(f"{name}: render disagrees with the JAX "
+                             "reference")
 
 
 def phase_reference(dev):
     log("== phase 5: against the stored JAX reference image")
-    from tuturenderer_tpu_torch.integrators.path import render
     from tuturenderer_tpu_torch.options import RenderOptions
     from tuturenderer_tpu_torch.scene.presets import simple_box
-    ref = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               REF_IMAGE))
+    scene, cam = simple_box(*REF_SIZE, device=dev)
+    against_reference("simple_box", scene, cam, RenderOptions(spp=REF_SPP),
+                      REF_IMAGE)
+
+
+def translucent_showcase(width: int, height: int, nu: int = 224,
+                         nv: int = 224, device="cuda"):
+    """sphere_showcase with the sphere's material at alpha 0.5 (the same
+    scene as tests/torch_port_util.py translucent_showcase)."""
+    from tuturenderer_tpu_torch.camera import make_camera
+    from tuturenderer_tpu_torch.models.meshes import plane, uv_sphere
+    from tuturenderer_tpu_torch.scene.data import (LAMBERTIAN, MICROFACET_R,
+                                                   SceneBuilder)
+    b = SceneBuilder(bkgcolor=(0.05, 0.05, 0.08))
+    sphere_mat = b.add_material(MICROFACET_R, diffuse=(0.8, 0.3, 0.2),
+                                roughness=0.3, metallic=0.2, alpha=0.5)
+    verts, normals = uv_sphere(radius=1.0, nu=nu, nv=nv)
+    b.add_triangles(verts, normals, None, sphere_mat)
+    ground = b.add_material(LAMBERTIAN, diffuse=(0.7, 0.7, 0.7))
+    b.add_triangles(plane((0, -1, 0), (0, 0, 6), (6, 0, 0)), None, None,
+                    ground)
+    light = b.add_material(LAMBERTIAN, emission=(12.0, 11.0, 10.0))
+    b.add_triangles(plane((0, 3, 0), (1, 0, 0), (0, 0, 1)), None, None,
+                    light)
+    scene = b.build(device=device)
+    cam = make_camera(width, height, 45, eye=(0, 0.6, -3.5),
+                      viewdir=(0, -0.12, 1), updir=(0, 1, 0), device=device)
+    return scene, cam
+
+
+def alpha_table(clusters, dev):
+    """The clusters with every real row's alpha (slot 13) drawn from
+    {0.3, 0.85, 1.0}."""
+    woop = clusters.woop.clone()
+    rows = woop.view(woop.shape[0], -1)[:, :64 * 14].view(-1, 64, 14)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pick = torch.randint(0, 3, rows.shape[:2], generator=gen, device=dev)
+    rows[..., 13] = torch.tensor([0.3, 0.85, 1.0], device=dev)[pick]
+    return dataclasses.replace(clusters, woop=woop)
+
+
+def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
+                            shadow=None, dists=SHADOW_DISTS) -> dict:
+    """K5/K6/K7 against their plain versions on one ray set: t bit-equal,
+    idx equal wherever t is unique, bu/bv equal wherever idx is, every K6
+    mask equal, K7 within rtol 1e-5 / atol 1e-6. ``shadow`` (6 columns +
+    dist) replaces the K6/K7 rays and distances when given. Returns the
+    max abs error per kernel."""
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    tk, ik, uk, vk = C.cluster_intersect(clusters, *rays)
+    tp, ip, up, vp = C.cluster_intersect_plain(clusters, *rays)
+    torch.cuda.synchronize()
+    hit = ip >= 0
+    t_eq = bool(((tk == tp) | (torch.isnan(tk) & torch.isnan(tp))).all())
+    # with t bit-equal, a differing idx is a triangle at the same t: a tie
+    idx_diff = int((ik != ip).sum())
+    same = ik == ip
+    uv_err = max((uk - up)[same].abs().max().item(),
+                 (vk - vp)[same].abs().max().item()) if same.any() else 0.0
+    log(f"  {name}: K5 rays={rays[0].shape[0]} hit={hit.float().mean():.4f}"
+        f" t bit-equal={t_eq} idx differs (exact t ties)={idx_diff} "
+        f"max|du|,|dv| where idx equal={uv_err:.3g}")
+    if not t_eq or uv_err != 0.0:
+        raise AssertionError(f"{name}: K5 disagrees with its plain version")
+    errs = {"cluster_nearest": 0.0, "cluster_anyhit": 0.0,
+            "cluster_transmit": 0.0}
+    if shadow is None:
+        t_ref = torch.where(hit, tp, torch.full_like(tp, 10.0))
+        sets = [(f"t*{f}{off:+g}", rays, (t_ref * f + off).contiguous())
+                for f, off in dists]
+    else:
+        sets = [("wavefront dist", shadow[:6], shadow[6])]
+    for label, r6, dist in sets:
+        bk = C.cluster_occluded(clusters, *r6, dist)
+        bp = C.cluster_occluded_plain(clusters, *r6, dist)
+        xk = C.cluster_transmittance(alpha_cl, *r6, dist)
+        xp = C.cluster_transmittance_plain(alpha_cl, *r6, dist)
+        n_diff = int((bk != bp).sum())
+        x_err = (xk - xp).abs().max().item()
+        log(f"  {name}: dist={label} K6 blocked={bp.float().mean():.4f} "
+            f"disagree={n_diff}; K7 mean={xp.mean():.4f} max|err|="
+            f"{x_err:.3g}")
+        if n_diff:
+            raise AssertionError(f"{name}: K6 disagrees on {n_diff} rays")
+        torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+        errs["cluster_anyhit"] = max(errs["cluster_anyhit"], float(n_diff))
+        errs["cluster_transmit"] = max(errs["cluster_transmit"], x_err)
+    return errs
+
+
+def capture_wavefront(scene, cam, dev):
+    """The inputs of the depth-1 nearest-hit and shadow calls of a 1-spp
+    render: a bounce wavefront as the main path gives it to the kernels
+    (dead lanes included, masked as the path masks them)."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.ops import intersect as I
+    from tuturenderer_tpu_torch.options import RenderOptions
+    calls = {"near": [], "occ": []}
+    orig = (I.cluster_intersect, I.cluster_occluded)
+
+    def near(cl, *a, **kw):
+        calls["near"].append([x.clone() for x in a])
+        return orig[0](cl, *a, **kw)
+
+    def occ(cl, *a, **kw):
+        calls["occ"].append([x.clone() for x in a])
+        return orig[1](cl, *a, **kw)
+
+    I.cluster_intersect, I.cluster_occluded = near, occ
+    try:
+        render(scene, cam, RenderOptions(spp=1), seed=0)
+    finally:
+        I.cluster_intersect, I.cluster_occluded = orig
+    return calls["near"][1], calls["occ"][1]
+
+
+def phase_cluster_kernels(dev):
+    log("== phase 6: cluster kernels vs plain on the card")
+    from tuturenderer_tpu_torch.camera import primary_ray
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase, terrain
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs = {}
+
+    def ray_set(scene, cam, n):
+        """n/2 camera rays at random pixels, n/2 random bounce rays from
+        random points in the scene's box."""
+        cl = scene.clusters
+        pix = torch.randperm(cam.n_pixels, generator=gen, device=dev)[:n // 2]
+        o, d, _ = primary_ray(cam, pix % cam.width, pix // cam.width)
+        ob = cl.scene_lo + (cl.scene_hi - cl.scene_lo) * torch.rand(
+            (n - n // 2, 3), generator=gen, device=dev)
+        o = torch.cat([torch.stack(list(o), 1), ob])
+        d = torch.cat([torch.stack(list(d), 1),
+                       random_unit(n - n // 2, gen, dev)])
+        return cols(o) + cols(d)
+
+    def merge(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    t0 = time.perf_counter()
+    scene, cam = sphere_showcase(512, 512, device=dev)
+    log(f"sphere_showcase(512, 512): {scene.n_tris} triangles, "
+        f"{int((scene.clusters.tri_idx[:, 0] >= 0).sum())} clusters, "
+        f"{scene.clusters.node_box.shape[0]} tree nodes, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    alpha_cl = alpha_table(scene.clusters, dev)
+    merge(compare_cluster_kernels("sphere_showcase", scene.clusters,
+                                  alpha_cl, ray_set(scene, cam, 65536)))
+
+    near, occ = capture_wavefront(scene, cam, dev)
+    merge(compare_cluster_kernels("sphere_showcase wavefront",
+                                  scene.clusters, alpha_cl, near,
+                                  shadow=occ))
+
+    # device time, tests per ray and bound at the main path's shapes
+    cl = scene.clusters
+    n = near[0].shape[0]
+    tbytes = sum(a.numel() * a.element_size() for a in
+                 (cl.woop, cl.tri_idx, cl.node_box, cl.node_link))
+    calls = {"cluster_nearest": (C.cluster_intersect, cl, near, 40),
+             "cluster_anyhit": (C.cluster_occluded, cl, occ, 32),
+             "cluster_transmit": (C.cluster_transmittance, alpha_cl, occ,
+                                  32)}
+    plain = {"cluster_nearest": C.cluster_intersect_plain,
+             "cluster_anyhit": C.cluster_occluded_plain,
+             "cluster_transmit": C.cluster_transmittance_plain}
+    stats = {}
+    for k, (fn, table, args, ray_bytes) in calls.items():
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn(table, *args, test_count=count)
+        tests = float(count.item())
+        ms = device_ms(lambda: fn(table, *args))
+        plain_ms = device_ms(lambda: plain[k](table, *args), reps=2, warm=1)
+        log(f"  {k}: {n} rays of a bounce wavefront: device ms kernel="
+            f"{ms:.4f} plain={plain_ms:.4f}; tests/ray={tests / n:.2f}")
+        b_ms, b_by = bound(k, n * ray_bytes + tbytes, tests)
+        stats[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "tests_per_ray": tests / n}
+    del scene, cam, alpha_cl, near, occ
+
+    t0 = time.perf_counter()
+    scene, cam = terrain(512, 512, nx=724, nz=724, device=dev)
+    log(f"terrain(512, 512, nx=724, nz=724): {scene.n_tris} triangles, "
+        f"{int((scene.clusters.tri_idx[:, 0] >= 0).sum())} clusters, "
+        f"{scene.clusters.node_box.shape[0]} tree nodes, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rays = ray_set(scene, cam, 16384)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    C.cluster_intersect(scene.clusters, *rays, test_count=count)
+    log(f"  terrain: K5 tests/ray={count.item() / 16384:.2f} at 16,384 "
+        f"camera and random rays")
+    merge(compare_cluster_kernels("terrain", scene.clusters,
+                                  alpha_table(scene.clusters, dev), rays))
+    return errs, stats
+
+
+def timed_render(scene, cam, opts, dev):
+    """(image, wall s, launches) of one render, counts zeroed just before."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    img = render(scene, cam, opts, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("render produced non-finite pixels")
+    if tuple(img.shape) != (cam.height, cam.width, 3):
+        raise AssertionError(f"image shape {tuple(img.shape)}")
+    return img, wall, launches
+
+
+def phase_mesh_slice(dev) -> dict:
+    """The three mesh-scale renders; returns each one's launches."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase, terrain
+    from tuturenderer_tpu_torch.options import RenderOptions
+    runs = {}
+    # warm-up at a small size (allocator, lazy module loads); not counted
+    s_small, c_small = sphere_showcase(64, 64, nu=46, nv=46, device=dev)
+    render(s_small, c_small, RenderOptions(spp=1, alpha_shadows=True))
+
+    cases = (
+        ("sphere_showcase", "render(sphere_showcase(512, 512), "
+         "RenderOptions(spp=16))",
+         lambda: sphere_showcase(512, 512, device=dev), RenderOptions(spp=16),
+         "cluster_anyhit"),
+        ("terrain", "render(terrain(512, 512, nx=724, nz=724), "
+         "RenderOptions(spp=4))",
+         lambda: terrain(512, 512, nx=724, nz=724, device=dev),
+         RenderOptions(spp=4), "cluster_anyhit"),
+        ("translucent", "render(translucent showcase(256, 256), "
+         "RenderOptions(spp=4, alpha_shadows=True))",
+         lambda: translucent_showcase(256, 256, device=dev),
+         RenderOptions(spp=4, alpha_shadows=True), "cluster_transmit"))
+    for i, (key, title, make, opts, shadow) in enumerate(cases):
+        log(f"== phase 7.{i + 1}: {title}")
+        t0 = time.perf_counter()
+        scene, cam = make()
+        log(f"{scene.n_tris} triangles, scene built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        img, wall, launches = timed_render(scene, cam, opts, dev)
+        check_launches(launches, {
+            "cluster_nearest": (opts.max_depth + 2) * opts.spp,
+            shadow: (opts.max_depth + 1) * opts.spp})
+        report_render(scene, cam, opts, img, wall, dev)
+        runs[key] = launches
+        del scene, cam, img
+    return runs
+
+
+def phase_mesh_references(dev):
+    log("== phase 8: mesh-scale renders against the stored JAX references")
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
     w, h = REF_SIZE
-    scene, cam = simple_box(w, h, device=dev)
-    img = render(scene, cam, RenderOptions(spp=REF_SPP), seed=REF_SEED)
-    img = img.cpu().numpy()
-    close = np.isclose(img, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
-    rel_mean = abs(img.mean() - ref.mean()) / ref.mean()
-    log(f"pixels within rtol 1e-4 / atol 1e-5: {close.mean() * 100:.2f}% "
-        f"(CPU test bar 99%), image mean {img.mean():.6f} vs "
-        f"{ref.mean():.6f} (rel {rel_mean:.2e}, bar 0.5%); no widening")
-    if close.mean() < 0.99 or rel_mean > 0.005:
-        raise AssertionError("render disagrees with the JAX reference")
+    make = {"showcase": lambda: sphere_showcase(w, h, nu=46, nv=46,
+                                                device=dev),
+            "translucent": lambda: translucent_showcase(w, h, nu=46, nv=46,
+                                                        device=dev),
+            "box": lambda: simple_box(w, h, device=dev)}
+    for name, (kind, fields) in MESH_REFS.items():
+        scene, cam = make[kind]()
+        path = f"tests/data/torch_{name.replace('-', '_')}_jax_ref.npy"
+        against_reference(name, scene, cam,
+                          RenderOptions(spp=REF_SPP, **fields), path)
 
 
 def main() -> int:
@@ -327,15 +693,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = phase_device()
     phase_build()
-    errs, times = phase_kernels(dev)
+    errs, times, bounds = phase_kernels(dev)
     launches = phase_slice(dev)
     phase_reference(dev)
+    cl_errs, cl_stats = phase_cluster_kernels(dev)
+    runs = phase_mesh_slice(dev)
+    phase_mesh_references(dev)
     kernels = [{
-        "name": KERNEL_NAMES[k], "route": "cuda", "source": SOURCE,
+        "name": KERNEL_NAMES[k], "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": errs[k], "ms": times["simple_box"][k],
         "plain_ms": times["simple_box"][k + "_plain"],
+        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+        "library_ms": None,
     } for k in ("nearest", "anyhit")]
+    # launches from the render of each kernel's path: K5/K6 the
+    # sphere_showcase render, K7 the translucent alpha render
+    path_of = {"cluster_nearest": "sphere_showcase",
+               "cluster_anyhit": "sphere_showcase",
+               "cluster_transmit": "translucent"}
+    kernels += [{
+        "name": KERNEL_NAMES[k], "route": "cuda", "source": SOURCES[k],
+        "replaces": REPLACES[k], "launches": runs[path_of[k]][k],
+        "max_abs_err": cl_errs[k], "ms": cl_stats[k]["ms"],
+        "plain_ms": cl_stats[k]["plain_ms"],
+        "bound_ms": cl_stats[k]["bound_ms"],
+        "bound_by": cl_stats[k]["bound_by"], "library_ms": None,
+    } for k in ("cluster_nearest", "cluster_anyhit", "cluster_transmit")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,14 +5,21 @@ on a machine that has only PyTorch:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: exact. The kernels are built with --fmad=false and compute the
-plain versions' float32 expressions in the same order.
+plain versions' float32 expressions in the same order. The cluster kernels
+visit triangles in another order than their plain versions, so an exact t
+tie may keep another index (idx is compared where t is unique) and the
+transmittance product differs within rtol 1e-5 / atol 1e-6.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from tuturenderer_tpu_torch.camera import primary_ray
 from tuturenderer_tpu_torch.integrators.path import render
+from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+from tuturenderer_tpu_torch.ops.cuda import cluster as C
 from tuturenderer_tpu_torch.ops.cuda import intersect as K
 from tuturenderer_tpu_torch.options import RenderOptions
 from tuturenderer_tpu_torch.scene.data import SceneBuilder
@@ -75,3 +82,91 @@ def test_render_goes_through_the_kernels(dev):
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert K.LAUNCHES["nearest"] - before["nearest"] == (3 + 2) * 2
     assert K.LAUNCHES["anyhit"] - before["anyhit"] == (3 + 1) * 2
+
+
+def _mesh(dev, n_rays=8192):
+    """sphere_showcase at 4,236 triangles (cluster tables) with camera rays
+    and random rays from inside the scene."""
+    scene, cam = sphere_showcase(64, 64, nu=46, nv=46, device=dev)
+    lane = torch.arange(64 * 64, device=dev)
+    o, d, _ = primary_ray(cam, lane % 64, lane // 64)
+    g = torch.Generator(device=dev).manual_seed(3)
+    ob = torch.rand((n_rays, 3), generator=g, device=dev) * 4.0 - 2.0
+    db = torch.randn((n_rays, 3), generator=g, device=dev)
+    db = db / db.norm(dim=1, keepdim=True)
+    return scene, torch.cat([torch.stack(list(o), 1), ob]), \
+        torch.cat([torch.stack(list(d), 1), db])
+
+
+def test_cluster_kernels_equal_plain_versions(dev):
+    scene, o, d = _mesh(dev)
+    cl = scene.clusters
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    before = dict(K.LAUNCHES)
+    t, idx, bu, bv = C.cluster_intersect(cl, *rays)
+    tp, ip, up, vp = C.cluster_intersect_plain(cl, *rays)
+    torch.testing.assert_close(t, tp, rtol=0, atol=0)
+    assert bool((ip >= 0).any())
+    same = idx == ip
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(bu[same], up[same], rtol=0, atol=0)
+    torch.testing.assert_close(bv[same], vp[same], rtol=0, atol=0)
+    alpha = cl.woop.clone()
+    rows = alpha.view(alpha.shape[0], -1)[:, :64 * 14].view(-1, 64, 14)
+    rows[..., 13] = torch.tensor([0.3, 0.85, 1.0], device=dev)[
+        torch.arange(rows.shape[1], device=dev) % 3]
+    cl_alpha = dataclasses.replace(cl, woop=alpha)
+    t_ref = torch.where(ip >= 0, tp, 10.0)
+    for scale, off in ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
+                       (1.0, -2e-4)):
+        dist = t_ref * scale + off
+        torch.testing.assert_close(C.cluster_occluded(cl, *rays, dist),
+                                   C.cluster_occluded_plain(cl, *rays, dist))
+        torch.testing.assert_close(
+            C.cluster_transmittance(cl_alpha, *rays, dist),
+            C.cluster_transmittance_plain(cl_alpha, *rays, dist),
+            rtol=1e-5, atol=1e-6)
+    assert K.LAUNCHES["cluster_nearest"] == before["cluster_nearest"] + 1
+    assert K.LAUNCHES["cluster_anyhit"] == before["cluster_anyhit"] + 5
+    assert K.LAUNCHES["cluster_transmit"] == before["cluster_transmit"] + 5
+
+
+def test_cluster_test_count(dev):
+    scene, o, d = _mesh(dev, n_rays=256)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    C.cluster_intersect(scene.clusters, *rays, test_count=count)
+    n = o.shape[0]
+    # the walk culls: fewer tests than the dense n x 4,236, at least one
+    assert 0 < int(count) < n * scene.n_tris
+
+
+@pytest.mark.parametrize("opts,nearest,shadow", [
+    (RenderOptions(spp=2, max_depth=3), 5, ("cluster_anyhit", 4)),
+    (RenderOptions(spp=2, max_depth=3, mis=False), 4, ("cluster_anyhit", 4)),
+    (RenderOptions(spp=2, max_depth=3, alpha_shadows=True), 5,
+     ("cluster_transmit", 4))], ids=["mis", "nee-only", "alpha-shadows"])
+def test_mesh_render_goes_through_the_cluster_kernels(dev, opts, nearest,
+                                                      shadow):
+    scene, cam = sphere_showcase(32, 24, nu=46, nv=46, device=dev)
+    before = dict(K.LAUNCHES)
+    img = render(scene, cam, opts, seed=1)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    got = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want["cluster_nearest"] = nearest * opts.spp
+    want[shadow[0]] = shadow[1] * opts.spp
+    assert got == want
+
+
+def test_cluster_wrapper_raises_on_a_wrong_length_table(dev):
+    scene, o, d = _mesh(dev, n_rays=64)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    bad = dataclasses.replace(scene.clusters,
+                              woop=scene.clusters.woop[:-1].contiguous())
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError):
+        C.cluster_intersect(bad, *rays)
+    with pytest.raises(ValueError):
+        C.cluster_transmittance(bad, *rays, torch.ones_like(rays[0]))
+    assert K.LAUNCHES == before

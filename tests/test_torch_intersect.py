@@ -91,7 +91,7 @@ def _unique_t(table, o, d):
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     jscene, o, d = CASES[request.param]()
-    scene = scene_from_numpy(flatten(jscene))
+    scene = scene_from_numpy(flatten(jscene), device="cpu")
     return jscene, scene, o, d
 
 
@@ -141,7 +141,7 @@ def test_anyhit_endpoint_guard():
     b.add_triangles(
         np.asarray([[[-1, -1, 1], [1, -1, 1], [0, 1, 1]]], np.float32),
         None, None, m)
-    scene = scene_from_numpy(flatten(b.build()))
+    scene = scene_from_numpy(flatten(b.build()), device="cpu")
     z = torch.zeros(4)
     dist = torch.tensor([2.0, 1.0, 0.5, 1.0 + 5e-5])
     got = K.tri_occluded(K.pack_triangles_woop(scene), z, z, z, z, z,

@@ -182,7 +182,7 @@ def _textured_scene(mod):
 
 def test_apply_textures_matches_jax():
     jscene = _textured_scene(jdata)
-    scene = scene_from_numpy(flatten(jscene))
+    scene = scene_from_numpy(flatten(jscene), device="cpu")
     r = np.random.RandomState(8)
     kind = r.randint(0, 2, N).astype(np.int32)
     idx = np.where(kind == 0, r.randint(0, 10, N),
@@ -211,7 +211,7 @@ def test_apply_textures_matches_jax():
 def test_sample_light_matches_jax(which, pick, tri):
     jscene = j_simple_box(8, 8)[0] if which == "simple_box" \
         else _textured_scene(jdata)
-    scene = scene_from_numpy(flatten(jscene))
+    scene = scene_from_numpy(flatten(jscene), device="cpu")
     r = np.random.RandomState(6)
     u = [r.rand(N).astype(np.float32) for _ in range(3)]
     want = JL.sample_light(jscene, *map(jnp.asarray, u), pick, tri)
@@ -226,7 +226,7 @@ def test_sample_light_matches_jax(which, pick, tri):
 @pytest.mark.parametrize("with_area", [False, True])
 def test_light_pdf_of_hit_matches_jax(with_area):
     jscene = _textured_scene(jdata)
-    scene = scene_from_numpy(flatten(jscene))
+    scene = scene_from_numpy(flatten(jscene), device="cpu")
     r = np.random.RandomState(9)
     kind = r.randint(0, 2, N).astype(np.int32)
     idx = np.where(kind == 0, r.randint(-1, 10, N),

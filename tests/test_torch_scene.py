@@ -45,7 +45,7 @@ def _textured(mod):
     b.add_triangles(verts[8:], None, None, light)
     b.add_sphere((0.0, 0.5, 2.0), 0.5, tex)
     b.add_sphere((1.0, -0.5, 2.0), 0.3, light)
-    return b.build()
+    return b.build() if mod is jdata else b.build(device="cpu")
 
 
 def _assert_same_arrays(got: dict, want: dict):
@@ -63,14 +63,14 @@ def jax_box():
 
 def test_scene_from_numpy_round_trips_simple_box(jax_box):
     arrays, _, _ = jax_box
-    scene = tdata.scene_from_numpy(arrays)
+    scene = tdata.scene_from_numpy(arrays, device="cpu")
     _assert_same_arrays(flatten(scene), arrays)
     assert scene.mtype_set == (0, 1, 2) and not scene.has_textures
 
 
 def test_builder_matches_jax_simple_box(jax_box):
     arrays, _, _ = jax_box
-    scene, _ = simple_box(W, H)
+    scene, _ = simple_box(W, H, device="cpu")
     _assert_same_arrays(flatten(scene), arrays)
 
 
@@ -81,21 +81,25 @@ def test_builder_matches_jax_textured_scene():
     assert bool(got["has_textures"])
 
 
-def test_cluster_scenes_raise():
-    b = tdata.SceneBuilder()
-    m = b.add_material()
-    b.add_triangles(np.zeros((2, 3, 3), np.float32), None, None, m)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        b.build(use_bvh=True)
-    b.add_triangles(np.random.RandomState(0).randn(4094, 3, 3), None, None, m)
-    with pytest.raises(NotImplementedError, match="4096 triangles"):
-        b.build()
+def test_entry_points_build_on_the_card_by_default():
+    """With no device given, scenes and cameras go on the card; without a
+    CUDA device that raises instead of building on the CPU."""
+    if torch.cuda.is_available():
+        scene, cam = simple_box(8, 8)
+        assert scene.device.type == "cuda"
+        assert cam.position.x.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simple_box(8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdata.SceneBuilder().build()
 
 
 def test_camera_from_numpy_matches_make_camera(jax_box):
     _, cam_arrays, _ = jax_box
-    _, cam = simple_box(W, H)
-    _assert_same_arrays(flatten(camera_from_numpy(cam_arrays)), cam_arrays)
+    _, cam = simple_box(W, H, device="cpu")
+    _assert_same_arrays(flatten(camera_from_numpy(cam_arrays, device="cpu")),
+                        cam_arrays)
     _assert_same_arrays(flatten(cam), cam_arrays)
 
 
@@ -104,7 +108,7 @@ def test_primary_rays_match_jax(jax_box):
     pix = np.arange(W * H, dtype=np.int32)
     jo, jd, jp = j_primary_ray(jcam, jnp.asarray(pix % W),
                                jnp.asarray(pix // W))
-    cam = camera_from_numpy(cam_arrays)
+    cam = camera_from_numpy(cam_arrays, device="cpu")
     t = torch.from_numpy(pix)
     o, d, p = primary_ray(cam, t % W, t // W)
     for got, want in ((o, jo), (d, jd), (p, jp)):
@@ -119,7 +123,10 @@ def test_port_imports_and_renders_without_jax():
         "from tuturenderer_tpu_torch.integrators.path import render\n"
         "from tuturenderer_tpu_torch.options import RenderOptions\n"
         "from tuturenderer_tpu_torch.scene.presets import simple_box\n"
-        "s, c = simple_box(8, 8)\n"
+        "import tuturenderer_tpu_torch.ops.cluster\n"
+        "import tuturenderer_tpu_torch.ops.cuda.cluster\n"
+        "import tuturenderer_tpu_torch.models.scenes\n"
+        "s, c = simple_box(8, 8, device='cpu')\n"
         "img = render(s, c, RenderOptions(spp=1))\n"
         "assert img.shape == (8, 8, 3) and bool(img.isfinite().all())\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

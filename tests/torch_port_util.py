@@ -7,13 +7,21 @@
 - ``jax_dense_pallas_interpret`` makes the JAX package take its dense
   Pallas kernels (the Woop kernels the port's CUDA kernels replace) in
   interpret mode on the CPU, within the block only;
-- ``REF_*`` say how ``tests/data/torch_simple_box_jax_ref.npy`` is made.
+- ``REF_*`` say how ``tests/data/torch_simple_box_jax_ref.npy`` is made;
+- ``MESH_CASES`` name the renders the mesh-scale slice is held to, and
+  ``MESH_REFS`` where each is stored under ``tests/data/``
+  (``make_torch_mesh_refs.py``); ``chip_smoke.py`` holds the card's renders
+  against them;
+- ``translucent_showcase`` builds sphere_showcase's geometry with the
+  sphere's material at alpha 0.5 with either package's builder (the JAX
+  package has no such preset).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import importlib
 import os
 
 import numpy as np
@@ -71,3 +79,86 @@ def jax_reference_render() -> np.ndarray:
     with jax_dense_pallas_interpret():
         return np.asarray(render(scene, cam, RenderOptions(spp=REF_SPP),
                                  seed=REF_SEED))
+
+
+# the mesh-scale slice at test size: sphere_showcase(24, 20, nu=46, nv=46)
+# has 4,236 triangles, so it carries cluster tables
+SHOWCASE_NU = SHOWCASE_NV = 46
+TRANSLUCENT_ALPHA = 0.5
+
+# name -> (scene, RenderOptions fields); "box" scenes are simple_box, whose
+# JAX render takes the dense Pallas kernels in interpret mode
+MESH_CASES = {
+    "showcase-mis": ("showcase", {}),
+    "showcase-nee": ("showcase", {"mis": False}),
+    "translucent-alpha": ("translucent", {"alpha_shadows": True}),
+    "box-nee": ("box", {"mis": False}),
+    "box-alpha": ("box", {"alpha_shadows": True}),
+}
+MESH_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
+                                f"torch_{name.replace('-', '_')}_jax_ref.npy")
+             for name in MESH_CASES}
+
+
+def translucent_showcase(pkg: str, width: int, height: int,
+                         nu: int = SHOWCASE_NU, nv: int = SHOWCASE_NV,
+                         **device):
+    """sphere_showcase with the sphere's material at alpha 0.5, built with
+    the ``pkg`` package ("tuturenderer_tpu" or "tuturenderer_tpu_torch";
+    ``device`` goes to the latter's build and camera)."""
+    data = importlib.import_module(pkg + ".scene.data")
+    meshes = importlib.import_module(pkg + ".models.meshes")
+    camera = importlib.import_module(pkg + ".camera")
+    b = data.SceneBuilder(bkgcolor=(0.05, 0.05, 0.08))
+    sphere_mat = b.add_material(data.MICROFACET_R, diffuse=(0.8, 0.3, 0.2),
+                                roughness=0.3, metallic=0.2,
+                                alpha=TRANSLUCENT_ALPHA)
+    verts, normals = meshes.uv_sphere(radius=1.0, nu=nu, nv=nv)
+    b.add_triangles(verts, normals, None, sphere_mat)
+    ground = b.add_material(data.LAMBERTIAN, diffuse=(0.7, 0.7, 0.7))
+    b.add_triangles(meshes.plane((0, -1, 0), (0, 0, 6), (6, 0, 0)), None,
+                    None, ground)
+    light = b.add_material(data.LAMBERTIAN, emission=(12.0, 11.0, 10.0))
+    b.add_triangles(meshes.plane((0, 3, 0), (1, 0, 0), (0, 0, 1)), None,
+                    None, light)
+    scene = b.build(**device)
+    cam = camera.make_camera(width, height, 45, eye=(0, 0.6, -3.5),
+                             viewdir=(0, -0.12, 1), updir=(0, 1, 0),
+                             **device)
+    return scene, cam
+
+
+def jax_mesh_scene(name: str):
+    """The JAX (scene, camera) of a MESH_CASES entry at REF_SIZE."""
+    from tuturenderer_tpu.models.scenes import sphere_showcase
+    from tuturenderer_tpu.scene.presets import simple_box
+    kind = MESH_CASES[name][0]
+    if kind == "showcase":
+        return sphere_showcase(*REF_SIZE, nu=SHOWCASE_NU, nv=SHOWCASE_NV)
+    if kind == "translucent":
+        return translucent_showcase("tuturenderer_tpu", *REF_SIZE)
+    return simple_box(*REF_SIZE)
+
+
+@contextlib.contextmanager
+def jax_route(name: str):
+    """The JAX package's own CPU route for a MESH_CASES scene: its XLA BVH
+    and dense transmittance for the mesh scenes, the dense Pallas kernels
+    in interpret mode for simple_box."""
+    if MESH_CASES[name][0] == "box":
+        with jax_dense_pallas_interpret():
+            yield
+    else:
+        yield
+
+
+def jax_mesh_render(name: str, scene=None, cam=None) -> np.ndarray:
+    """The JAX render of a MESH_CASES entry at REF_SIZE x REF_SPP, seed
+    REF_SEED, as MESH_REFS stores it."""
+    from tuturenderer_tpu.integrators.path import render
+    from tuturenderer_tpu.options import RenderOptions
+    if scene is None:
+        scene, cam = jax_mesh_scene(name)
+    opts = RenderOptions(spp=REF_SPP, **MESH_CASES[name][1])
+    with jax_route(name):
+        return np.asarray(render(scene, cam, opts, seed=REF_SEED))

@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from .utils.device import DEFAULT_DEVICE, resolve
 from .utils.vec import Vec3, vec3
 
 
@@ -75,11 +76,12 @@ class Camera:
 
 def make_camera(width: int, height: int, hfov: float, eye, viewdir, updir,
                 parallel_projection: bool = False,
-                ref_grid: bool = True, device="cpu") -> Camera:
+                ref_grid: bool = True, device=DEFAULT_DEVICE) -> Camera:
     """Host-side camera construction (Camera.hpp:12-48 + plane setup
     PathTracing.hpp:357-391). ``ref_grid=True`` reproduces the reference's
     pixel grid, which steps (ur-ul)/(width-1) (PathTracing.hpp:381-383);
-    ``ref_grid=False`` steps span/width."""
+    ``ref_grid=False`` steps span/width. Tensors on ``device``."""
+    device = resolve(device)
     eye = np.asarray(eye, np.float64)
     fwd = _normalized(np.asarray(viewdir, np.float64))
     up_in = np.asarray(updir, np.float64)
@@ -142,11 +144,12 @@ def make_camera(width: int, height: int, hfov: float, eye, viewdir, updir,
 _CAMERA_STATIC = ("width", "height", "hfov", "parallel_projection")
 
 
-def camera_from_numpy(arrays: dict, device="cpu") -> Camera:
+def camera_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> Camera:
     """Camera from the JAX ``Camera`` fields flattened to numpy: Vec3
     fields under dotted keys (``position.x``), ``world2raster`` and the
     scalars under their names, and the static fields ``width``, ``height``,
     ``hfov`` and ``parallel_projection`` as numpy scalars."""
+    device = resolve(device)
     kw = {}
     for f in dataclasses.fields(Camera):
         if f.name in _CAMERA_STATIC:

@@ -17,15 +17,24 @@ estimator is the reference's recursive ``traceRay``
   and resets the RR throughput;
 - MIN_DIVISOR kill thresholds reproduced (PathTracing.hpp:215, 257, 272).
 
-Each bounce makes one nearest-hit and one shadow any-hit call, so a sample
-launches the dense kernels (max_depth + 2) and (max_depth + 1) times.
+``mis=False`` takes the NEE-only estimator of the reference's !MIS branch
+(PathTracing.hpp:281-347). ``alpha_shadows`` replaces the shadow any hit
+with the alpha-weighted transmittance in either estimator.
+
+Each bounce makes one nearest-hit and one shadow call, so a sample launches
+the nearest-hit kernel (max_depth + 2) times and the any-hit (or, under
+``alpha_shadows``, the transmittance) kernel (max_depth + 1) times: the
+dense kernels on a dense scene, the cluster kernels on a scene with
+cluster tables. The JAX package keeps a cluster scene's wavefront sorted in
+octant-Morton order for its TPU tiles; the port traces it unsorted, so
+lanes stay in the caller's order.
 
 Not served yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``mis=False`` (the NEE-only branch), ``compaction``, ``alpha_shadows`` and
-``differentiable=True``. Scenes with BVH/cluster tables, the only ones the
-JAX package sorts its wavefront for, cannot be built in this package.
+``compaction`` and ``differentiable=True``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,7 +42,8 @@ import torch
 from ..camera import Camera, primary_ray
 from ..materials import (MatParams, bxdf_eval, bxdf_pdf, bxdf_sample,
                          d_ndf, gather_material, mis_power_weight)
-from ..ops.intersect import intersect_core, occluded, shade_hit
+from ..ops.intersect import (intersect_core, occluded, shade_hit,
+                             transmittance)
 from ..ops.lights import light_pdf_of_hit, sample_light
 from ..options import EPSILON, MIN_DIVISOR, RenderOptions
 from ..scene.data import (MICROFACET_T, PERFECT_REFLECTIVE, UNLIT, SceneData)
@@ -44,13 +54,13 @@ from ..utils.vec import Vec3, reflect, where as vwhere
 FROM_CAMERA = 0
 FROM_BSDF = 1       # BSDF sample of a non-refractive vertex (MIS pending)
 FROM_REFRACT = 2    # calcForRefractive continuation
+FROM_MIRROR = 3     # NEE-only mode: calcForMirror continuation
+FROM_INDIRECT = 4   # NEE-only mode: indirect-illumination continuation
 
 # options this package does not serve yet: (asked for?, what, the ROADMAP
 # queue 1 item that brings it)
 _UNPORTED = (
-    (lambda o: not o.mis, "the NEE-only estimator (mis=False)", 6),
     (lambda o: bool(o.compaction), "wavefront compaction", 9),
-    (lambda o: o.alpha_shadows, "alpha shadows", 4),
     (lambda o: o.differentiable, "the differentiable renderer", 11),
 )
 
@@ -235,8 +245,8 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         to_l = lpos_off - sh_orig
         dist_l = to_l.norm()
         sh_dir = to_l * (1.0 / torch.clamp(dist_l, min=1e-20))
-        blocked = occluded(scene, sh_orig, sh_dir, dist_l,
-                           mask=do_nee & ls.valid)
+        sh_trans, blocked = _shadow(scene, sh_orig, sh_dir, dist_l,
+                                    do_nee & ls.valid, opts)
         wi_l = ls.pos - hit.pos
         r2_l = wi_l.norm2()
         wi_l = wi_l.normalized(1e-20)
@@ -256,6 +266,8 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         live = nee_live & ~kill
         scale = torch.where(live, w_l * cos_t * cos_p /
                             torch.clamp(denom, min=1e-20), 0.0)
+        if sh_trans is not None:
+            scale = scale * sh_trans
         L = L + vwhere(live, w * ls.emission * f_r_l * scale, z3)
         alive = alive & ~kill
 
@@ -361,6 +373,18 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         return L + vwhere(good, st['w_em'] * w_m * params.emission,
                           _zeros3(n, dev))
 
+    if not opts.mis:
+        st = dict(o=orig, d=d, L=_zeros3(n, dev), w=_ones3(n, dev),
+                  tp=_ones3(n, dev),
+                  alive=torch.ones((n,), dtype=torch.bool, device=dev),
+                  from_kind=torch.full((n,), FROM_CAMERA, dtype=torch.int32,
+                                       device=dev))
+        bounce = functools.partial(_nee_bounce, scene, lane, smp, seed, opts)
+        # nothing pays at depth max_depth+1: traceRay returns 0 before the
+        # miss/emissive checks (PathTracing.hpp:140), and the NEE branch has
+        # no pending emissive strategy
+        epilogue = lambda st: st['L']
+
     counts = []
     for depth in range(opts.max_depth + 1):
         if collect_alive:
@@ -370,6 +394,190 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         counts.append(st['alive'].sum())
         return epilogue(st), torch.stack(counts)
     return epilogue(st)
+
+
+def _shadow(scene: SceneData, sh_orig: Vec3, sh_dir: Vec3, dist, mask,
+            opts: RenderOptions):
+    """The NEE shadow query -> (transmittance or None, blocked). With
+    ``alpha_shadows`` visibility is the product of (1 - alpha) over every
+    occluder (getShadowCoeffi, BVHStrategy.hpp:13-45), else an any hit."""
+    if opts.alpha_shadows:
+        sh_trans = transmittance(scene, sh_orig, sh_dir, dist, mask=mask)
+        return sh_trans, sh_trans <= 0.0
+    return None, occluded(scene, sh_orig, sh_dir, dist, mask=mask)
+
+
+def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
+                st, depth: int):
+    """One bounce of the NEE-only estimator (the reference's !MIS branch,
+    PathTracing.hpp:281-347): light sampling is the only direct-light
+    strategy, so emission is seen only on camera rays. Perfect mirrors take
+    calcForMirror (PathTracing.hpp:50-70), an unweighted recursion through
+    the delta reflection; refractives take calcForRefractive as in the MIS
+    branch. Each vertex commits its NEE contribution inline, continuations
+    carry a prefix weight, and the child vertex resolves the parent's
+    "intersected && non-emissive" recursion gate (PathTracing.hpp:337)."""
+    o, d = st['o'], st['d']
+    alive = st['alive']
+    w = st['w']
+    L = st['L']
+    from_kind = st['from_kind']
+    n = o.x.shape[0]
+    dev = o.x.device
+    eta_scene = scene.eta
+    types = scene.mtype_set
+    z3 = _zeros3(n, dev)
+    one = torch.ones((n,), dtype=torch.float32, device=dev)
+
+    u = lambda purpose: rng.uniform(seed, lane, smp, depth, purpose)
+
+    core = intersect_core(scene, o, d, mask=alive)
+    hit = shade_hit(scene, o, d, core)
+    params = gather_material(scene, hit.mat)
+    params, ns = apply_textures(scene, hit, params)
+    hit = hit._replace(ns=ns)
+    wo = -d
+
+    # miss: bkgcolor for camera rays and refractive continuations
+    # (traceRay:150); a missed mirror ray returns 0 (calcForMirror checks
+    # x_inter before recursing, PathTracing.hpp:59-68); the indirect
+    # recursion is handed a known hit so it cannot miss
+    miss = alive & ~hit.hit
+    add_bkg = miss & ((from_kind == FROM_CAMERA) |
+                      (from_kind == FROM_REFRACT))
+    L = L + vwhere(add_bkg, w * scene.bkgcolor, z3)
+    alive = alive & hit.hit
+
+    # emissive: weight-1 on camera rays; every depth>0 provenance returns 0
+    # (traceRay:163-170; the indirect recursion never enters emissive hits,
+    # PathTracing.hpp:337)
+    emissive = params.emissive & alive
+    L = L + vwhere(emissive & (from_kind == FROM_CAMERA),
+                   w * params.emission, z3)
+    alive = alive & ~emissive
+
+    refr = params.is_refractive_kind
+    mirror = params.mtype == PERFECT_REFLECTIVE
+
+    # UNLIT returns diffuse from any provenance (the indirect recursion
+    # enters non-emissive hits; UNLIT qualifies)
+    unlit = alive & (params.mtype == UNLIT)
+    L = L + vwhere(unlit, w * params.diffuse, z3)
+    alive = alive & ~unlit
+
+    diff = alive & ~refr & ~mirror
+    tp = st['tp']
+
+    # ---- direct illumination (NEE, PathTracing.hpp:287-312): no MIS
+    # weight, no MIN_DIVISOR kill; the shadow offset uses Ng and the
+    # light's Ng gives cos_theta_prime, and cos_theta = wi.Ns is SIGNED
+    ls = sample_light(scene, u(rng.LIGHT_PICK), u(rng.LIGHT_U),
+                      u(rng.LIGHT_V), opts.tutu_light_pick,
+                      opts.tutu_tri_sample)
+    ray_inside = hit.ng.dot(wo) < 0.0          # Ng (PathTracing.hpp:293)
+    sh_orig = hit.pos + vwhere(ray_inside, -hit.ng, hit.ng) * EPSILON
+    to_l = ls.pos - sh_orig                    # light position not offset
+    dist_l = to_l.norm()
+    sh_dir = to_l * (1.0 / torch.clamp(dist_l, min=1e-20))
+    sh_trans, blocked = _shadow(scene, sh_orig, sh_dir, dist_l,
+                                diff & ls.valid, opts)
+    p2l = (ls.pos - hit.pos).normalized(1e-20)
+    cos_p = ls.ng.normalized(1e-20).dot(-p2l)
+    cos_t = p2l.dot(hit.ns)                    # signed (hpp:306)
+    dis2 = (ls.pos - hit.pos).norm2()
+    f_r_l = bxdf_eval(params, p2l, wo, hit.ng, hit.ns, eta_scene,
+                      types=types)
+    # cos_theta_prime < 0 rejected, == 0 kept (hpp:300)
+    dir_live = diff & ls.valid & ~blocked & (cos_p >= 0.0)
+    denom = torch.clamp(dis2 * ls.pdf_area, min=1e-20)
+    dir_scale = torch.where(dir_live, cos_t * cos_p / denom, 0.0)
+    if sh_trans is not None:
+        dir_scale = dir_scale * sh_trans
+    dir_illu = ls.emission * f_r_l * dir_scale
+
+    # ---- RR before sampling (hpp:315-319)
+    tp_eff = tp if depth > opts.min_depth else _ones3(n, dev)
+    rr_prob = torch.clamp(tp_eff.max_component(), 0.0, 1.0) \
+        if opts.russian_roulette else one
+    rr_survive = u(rng.RR) <= rr_prob
+
+    # ---- BSDF sample (shared by the mirror / refractive / indirect cases)
+    samp = bxdf_sample(params, wo, hit.ns, u(rng.BSDF_U0), u(rng.BSDF_U1),
+                       u(rng.BSDF_LOTTERY), eta_scene, opts.ggx_sample_bug,
+                       types=types)
+    wi = samp.wi
+    mat_pdf = bxdf_pdf(params, wi, wo, hit.ns, eta_scene, params.eta,
+                       types=types)
+
+    # refractive lanes: calcForRefractive, identical to the MIS mode
+    tir = samp.tir
+    wi_tir = reflect(wo, hit.ns).normalized(1e-20)
+    flip_r = wo.dot(hit.ng) < 0.0
+    i_ns = vwhere(flip_r, -hit.ns, hit.ns)
+    is_mt = params.mtype == MICROFACET_T
+    eta_pass = torch.where(flip_r & is_mt & tir, params.eta, eta_scene)
+    h_tir = (wo + wi_tir).normalized(1e-20)
+    cos_h = i_ns.dot(h_tir).abs()
+    pdf_tir_mt = d_ndf(h_tir, i_ns, params.roughness) * cos_h / \
+        torch.clamp(4.0 * wo.dot(h_tir), min=1e-20)
+    pdf_tir = torch.where(is_mt, pdf_tir_mt, 1.0)
+    wi = vwhere(refr & tir, wi_tir, wi)
+    mat_pdf = torch.where(refr & tir, pdf_tir, mat_pdf)
+    eta_for_eval = torch.where(refr, eta_pass, eta_scene)
+    eta_for_eval = torch.where(refr & ~tir, eta_scene, eta_for_eval)
+    f_r = bxdf_eval(params, wi, wo, hit.ng, hit.ns, eta_for_eval,
+                    adjoint=False, tir=refr & tir, types=types)
+
+    # commit dir_illu: a failed RR draw or a failed BSDF sample returns
+    # sampleValue=0 BEFORE dir_illu is added: the reference quirk that
+    # Russian roulette also kills the direct light already computed
+    # (PathTracing.hpp:317-327)
+    commit = dir_live & rr_survive & samp.success
+    L = L + vwhere(commit, w * dir_illu, z3)
+
+    # ---- per-case continuation weights
+    inv_pdf = torch.where(mat_pdf >= MIN_DIVISOR,
+                          1.0 / torch.clamp(mat_pdf, min=1e-20), 0.0)
+    #   mirror: res * f_r * (Ng.wi signed) / pdf, no RR, no divisor gate
+    #   (calcForMirror:60-66); pdf is 1 for the delta mirror
+    cos_mirror = hit.ng.dot(wi)
+    w_mirror = w * f_r * (cos_mirror / torch.clamp(mat_pdf, min=1e-20))
+    #   refractive: Li * cos * f_r / pdf with pdf >= MIN_DIVISOR
+    cos_refr = hit.ng.dot(wi).abs()
+    w_refr = w * f_r * (cos_refr * inv_pdf)
+    #   indirect: coe = f_r * |Ns.wi| / (pdf * rr_prob), gated by
+    #   pdf*rr_prob >= MIN_DIVISOR (hpp:335-343)
+    cos_ind = hit.ns.dot(wi).abs()
+    pdf_rr = mat_pdf * rr_prob
+    inv_pdf_rr = torch.where(pdf_rr >= MIN_DIVISOR,
+                             1.0 / torch.clamp(pdf_rr, min=1e-20), 0.0)
+    coe = f_r * (cos_ind * inv_pdf_rr)
+
+    new_from = torch.where(refr, FROM_REFRACT,
+                           torch.where(mirror, FROM_MIRROR, FROM_INDIRECT)) \
+        .to(torch.int32)
+    w_next = vwhere(refr, w_refr, vwhere(mirror, w_mirror, w * coe))
+    #   mirror and refractive recursions reset tp to 1 (calcForMirror:65,
+    #   calcForRefractive:130)
+    tp_next = vwhere(diff, tp_eff * coe, _ones3(n, dev))
+
+    alive_next = alive & torch.where(
+        refr, mat_pdf >= MIN_DIVISOR,
+        torch.where(mirror, True,
+                    rr_survive & samp.success & (pdf_rr >= MIN_DIVISOR)))
+
+    #   ray origins: indirect offsets along +-Ng (hpp:331-333), refractive
+    #   along +-Ns (calcForRefractive:118-126), mirror always +Ns
+    #   (calcForMirror:57)
+    ray_o_diff = hit.pos + vwhere(wi.dot(hit.ng) < 0.0, -hit.ng, hit.ng) * \
+        EPSILON
+    ray_o_refr = hit.pos + vwhere(wi.dot(hit.ns) < 0.0, -hit.ns, hit.ns) * \
+        EPSILON
+    ray_o_mirr = hit.pos + hit.ns * EPSILON
+    ray_o = vwhere(refr, ray_o_refr, vwhere(mirror, ray_o_mirr, ray_o_diff))
+
+    return dict(o=ray_o, d=wi, L=L, w=w_next, tp=tp_next, alive=alive_next,
+                from_kind=new_from)
 
 
 def render_sample(scene: SceneData, cam: Camera, px, py, lane, sample_idx,

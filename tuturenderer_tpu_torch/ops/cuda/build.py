@@ -50,23 +50,38 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def load_all(names) -> dict:
+    """The libraries built from ``csrc/<name>.cu`` for each name, compiled
+    where needed by one nvcc process per source, all started together.
+    Raises if an nvcc fails or a library does not load."""
+    todo = [n for n in names if n not in _LIBS and
+            not library_path(n).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{out}")
+            continue
+        os.replace(tmp, library_path(name))
+        BUILD_LOG[name] = (time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return {name: _LIBS[name] for name in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, compiled if needed.
     Raises if nvcc fails or the library does not load."""
-    if name in _LIBS:
-        return _LIBS[name]
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
-        os.replace(tmp, out)
-        BUILD_LOG[name] = (time.perf_counter() - t0,
-                           proc.stdout + proc.stderr)
-    _LIBS[name] = ctypes.CDLL(str(out))
-    return _LIBS[name]
+    return load_all([name])[name]

@@ -1,0 +1,261 @@
+"""Mesh-scale ray/triangle intersection over cluster tables: CUDA kernels
+and their plain versions.
+
+``cluster_intersect`` (nearest hit), ``cluster_occluded`` (any hit within a
+distance) and ``cluster_transmittance`` (product of ``1 - alpha`` over the
+crossings within a distance) replace the Pallas TPU kernels
+``tuturenderer_tpu/ops/pallas/cluster.py::_kernel_nearest``,
+``::_kernel_anyhit`` and ``::_kernel_transmit``. On a CUDA tensor each
+launches its kernel from ``csrc/cluster_walk.cu`` (a per-ray walk of the
+tree in ``Clusters.node_box``/``node_link``) or raises; on a CPU tensor it
+runs the plain PyTorch version beside it, which is also the kernels'
+oracle on the card.
+
+The plain versions compute the same function densely: the same
+per-triangle arithmetic over every real row of the table (``tri_idx >= 0``,
+in row order), in tiles of 512 rows, then the ``tri_idx`` mapping. So the
+kernels and the plain versions give bit-equal t, equal idx wherever t is
+unique, bu/bv equal wherever idx is, equal any-hit masks, and
+transmittances that differ only by the order of the product.
+
+``test_count`` (optional int64 [1] tensor on the rays' device) receives
+the number of ray/triangle tests made: a diagnostic, not passed on the
+main path. The launches are counted in ``LAUNCHES`` (shared with the dense
+kernels) under ``cluster_nearest``, ``cluster_anyhit`` and
+``cluster_transmit``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..cluster import CLUSTER_SIZE, WOOP_F
+from . import build
+from .intersect import CHUNK, F32_MAX, LAUNCHES, PARALLEL_EPS, _raise_on
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+_TABLE_ARGS = 4      # node_box, node_link, woop, tri_idx
+
+
+def _lib():
+    lib = build.load("cluster_walk")
+    if lib.cluster_nearest.argtypes is None:
+        lib.cluster_nearest.argtypes = [_P] * (_TABLE_ARGS + 6) + [_I] + \
+            [_P] * 6
+        lib.cluster_nearest.restype = _I
+        for fn in (lib.cluster_anyhit, lib.cluster_transmit):
+            fn.argtypes = [_P] * (_TABLE_ARGS + 7) + [_I] + [_P] * 3
+            fn.restype = _I
+    return lib
+
+
+def _check(clusters, cols, test_count) -> str:
+    """Validate the kernels' inputs; returns the device type."""
+    dev = cols[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no cluster intersection kernel for {dev}")
+    n = cols[0].shape[0] if cols[0].dim() == 1 else -1
+    for a in cols:
+        if a.dtype != torch.float32 or a.dim() != 1 or not a.is_contiguous():
+            raise ValueError("expected contiguous 1-D float32 ray columns, "
+                             f"got {a.dtype} of shape {tuple(a.shape)}")
+        if a.shape[0] != n:
+            raise ValueError("ray columns differ in length")
+    c = clusters.aabb.shape[0]
+    k = clusters.node_box.shape[0]
+    want = ((clusters.aabb, torch.float32, (c, 8)),
+            (clusters.woop, torch.float32, (c, 8, 128)),
+            (clusters.tri_idx, torch.int32, (c, CLUSTER_SIZE)),
+            (clusters.node_box, torch.float32, (k, 8)),
+            (clusters.node_link, torch.int32, (k, 2)))
+    for a, dtype, shape in want:
+        if a.dtype != dtype or tuple(a.shape) != shape or \
+                not a.is_contiguous():
+            raise ValueError(f"cluster table {a.dtype} {tuple(a.shape)} is "
+                             f"not a contiguous {dtype} {shape}")
+    for a in (*(t for t, _, _ in want), *cols):
+        if a.device != dev:
+            raise ValueError(f"tensors on {a.device} and {dev}")
+    if test_count is not None and (test_count.dtype != torch.int64 or
+                                   test_count.numel() != 1 or
+                                   test_count.device != dev):
+        raise ValueError("test_count must be one int64 on the rays' device")
+    return dev.type
+
+
+def _tables(clusters):
+    return (clusters.node_box.data_ptr(), clusters.node_link.data_ptr(),
+            clusters.woop.data_ptr(), clusters.tri_idx.data_ptr())
+
+
+def _ptrs(cols):
+    return [c.data_ptr() for c in cols]
+
+
+def _counter(test_count):
+    return None if test_count is None else test_count.data_ptr()
+
+
+def cluster_intersect(clusters, ox, oy, oz, dx, dy, dz, test_count=None):
+    """Nearest triangle hit per ray -> (t, idx, bu, bv), [N] each; idx is
+    the original triangle id (int32), t = 3.4e38 and idx = -1 on a miss."""
+    cols = (ox, oy, oz, dx, dy, dz)
+    if _check(clusters, cols, test_count) == "cpu":
+        return cluster_intersect_plain(clusters, *cols, test_count)
+    n = ox.shape[0]
+    t = torch.empty_like(ox)
+    idx = torch.empty(n, dtype=torch.int32, device=ox.device)
+    bu = torch.empty_like(ox)
+    bv = torch.empty_like(ox)
+    if n == 0:
+        return t, idx, bu, bv
+    lib = _lib()
+    with torch.cuda.device(ox.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cluster_nearest(
+            *_tables(clusters), *_ptrs(cols), n, t.data_ptr(),
+            idx.data_ptr(), bu.data_ptr(), bv.data_ptr(),
+            _counter(test_count), stream)
+    _raise_on(err, "cluster_nearest")
+    LAUNCHES["cluster_nearest"] += 1
+    return t, idx, bu, bv
+
+
+def cluster_occluded(clusters, ox, oy, oz, dx, dy, dz, dist,
+                     test_count=None):
+    """Any triangle hit with t < dist and |t - dist| >= 1e-4 -> bool [N]."""
+    cols = (ox, oy, oz, dx, dy, dz, dist)
+    if _check(clusters, cols, test_count) == "cpu":
+        return cluster_occluded_plain(clusters, *cols, test_count)
+    n = ox.shape[0]
+    hit = torch.empty(n, dtype=torch.int32, device=ox.device)
+    if n == 0:
+        return hit.bool()
+    lib = _lib()
+    with torch.cuda.device(ox.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cluster_anyhit(*_tables(clusters), *_ptrs(cols), n,
+                                 hit.data_ptr(), _counter(test_count), stream)
+    _raise_on(err, "cluster_anyhit")
+    LAUNCHES["cluster_anyhit"] += 1
+    return hit != 0
+
+
+def cluster_transmittance(clusters, ox, oy, oz, dx, dy, dz, dist,
+                          test_count=None):
+    """Product of (1 - alpha) over every triangle hit with t < dist ->
+    float32 [N] (getShadowCoeffi, BVHStrategy.hpp:13-45)."""
+    cols = (ox, oy, oz, dx, dy, dz, dist)
+    if _check(clusters, cols, test_count) == "cpu":
+        return cluster_transmittance_plain(clusters, *cols, test_count)
+    n = ox.shape[0]
+    trans = torch.empty_like(ox)
+    if n == 0:
+        return trans
+    lib = _lib()
+    with torch.cuda.device(ox.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cluster_transmit(*_tables(clusters), *_ptrs(cols), n,
+                                   trans.data_ptr(), _counter(test_count),
+                                   stream)
+    _raise_on(err, "cluster_transmit")
+    LAUNCHES["cluster_transmit"] += 1
+    return trans
+
+
+# ------------------------------------------------------- plain versions
+
+def real_rows(clusters):
+    """(rows [R, 14], virtual ids [R]) of the table's real triangle rows in
+    row order; virtual id = cluster * 64 + slot."""
+    c = clusters.woop.shape[0]
+    rows = clusters.woop.reshape(c, -1)[:, :CLUSTER_SIZE * WOOP_F] \
+        .reshape(c * CLUSTER_SIZE, WOOP_F)
+    virt = torch.nonzero(clusters.tri_idx.reshape(-1) >= 0)[:, 0]
+    return rows[virt], virt
+
+
+def _test_tile(rows, ox, oy, oz, dx, dy, dz):
+    """The kernels' 12-value test of [N, 1] rays against a [C, 14] row
+    slice -> (t, u, v, ok) [N, C], in their order of operations."""
+    r = [rows[:, j][None, :] for j in range(12)]
+    r1x, r1y, r1z, c1, r2x, r2y, r2z, c2, r3x, r3y, r3z, c3 = r
+    w_o = ox * r3x + oy * r3y + oz * r3z - c3
+    w_d = dx * r3x + dy * r3y + dz * r3z
+    inv = 1.0 / w_d
+    t = -w_o * inv
+    u = (ox * r1x + oy * r1y + oz * r1z - c1) + \
+        t * (dx * r1x + dy * r1y + dz * r1z)
+    v = (ox * r2x + oy * r2y + oz * r2z - c2) + \
+        t * (dx * r2x + dy * r2y + dz * r2z)
+    ok = (w_d.abs() >= PARALLEL_EPS) & (t > 0.0) & (u > 0.0) & (v > 0.0) \
+        & (1.0 - u - v > 0.0)
+    return t, u, v, ok
+
+
+def _count(test_count, n_rays, n_rows):
+    if test_count is not None:
+        test_count += n_rays * n_rows
+
+
+def cluster_intersect_plain(clusters, ox, oy, oz, dx, dy, dz,
+                            test_count=None):
+    """Plain PyTorch nearest hit over [N, 512] row tiles. The first minimum
+    wins within a tile and a strict < across tiles, so an exact t tie keeps
+    the lowest virtual id."""
+    rows, virt = real_rows(clusters)
+    n = ox.shape[0]
+    t_best = torch.full((n,), F32_MAX, dtype=torch.float32, device=ox.device)
+    best = torch.full((n,), -1, dtype=torch.int64, device=ox.device)
+    bu = torch.zeros_like(t_best)
+    bv = torch.zeros_like(t_best)
+    rays = [c[:, None] for c in (ox, oy, oz, dx, dy, dz)]
+    for lo in range(0, rows.shape[0], CHUNK):
+        t, u, v, ok = _test_tile(rows[lo:lo + CHUNK], *rays)
+        t = torch.where(ok, t, F32_MAX)
+        j = torch.argmin(t, dim=1, keepdim=True)
+        t_min = t.gather(1, j)[:, 0]
+        better = t_min < t_best
+        t_best = torch.where(better, t_min, t_best)
+        best = torch.where(better, lo + j[:, 0], best)
+        bu = torch.where(better, u.gather(1, j)[:, 0], bu)
+        bv = torch.where(better, v.gather(1, j)[:, 0], bv)
+    _count(test_count, n, rows.shape[0])
+    tri = clusters.tri_idx.reshape(-1)[virt[best.clamp(min=0)]]
+    idx = torch.where(best >= 0, tri, -1).to(torch.int32)
+    return t_best, idx, bu, bv
+
+
+def cluster_occluded_plain(clusters, ox, oy, oz, dx, dy, dz, dist,
+                           test_count=None):
+    """Plain PyTorch any hit within ``dist`` over [N, 512] row tiles."""
+    rows, _ = real_rows(clusters)
+    blocked = torch.zeros(ox.shape[0], dtype=torch.bool, device=ox.device)
+    rays = [c[:, None] for c in (ox, oy, oz, dx, dy, dz)]
+    d = dist[:, None]
+    for lo in range(0, rows.shape[0], CHUNK):
+        t, _, _, ok = _test_tile(rows[lo:lo + CHUNK], *rays)
+        ok = ok & (t < d) & ((t - d).abs() >= PARALLEL_EPS)
+        blocked = blocked | ok.any(dim=1)
+    _count(test_count, ox.shape[0], rows.shape[0])
+    return blocked
+
+
+def cluster_transmittance_plain(clusters, ox, oy, oz, dx, dy, dz, dist,
+                                test_count=None):
+    """Plain PyTorch product of (1 - alpha) over [N, 512] row tiles."""
+    rows, _ = real_rows(clusters)
+    trans = torch.ones(ox.shape[0], dtype=torch.float32, device=ox.device)
+    rays = [c[:, None] for c in (ox, oy, oz, dx, dy, dz)]
+    d = dist[:, None]
+    for lo in range(0, rows.shape[0], CHUNK):
+        tile = rows[lo:lo + CHUNK]
+        t, _, _, ok = _test_tile(tile, *rays)
+        ok = ok & (t < d)
+        trans = trans * torch.where(ok, 1.0 - tile[:, 13][None, :],
+                                    1.0).prod(dim=1)
+    _count(test_count, ox.shape[0], rows.shape[0])
+    return trans

@@ -26,7 +26,9 @@ TRI_FLOATS = 13
 MAX_TRIS = 4096         # dense limit; larger scenes take cluster tables
 CHUNK = 512             # triangles per [N, C] tile of the plain versions
 
-LAUNCHES = {"nearest": 0, "anyhit": 0}
+# launches per kernel, the cluster kernels' (ops/cuda/cluster.py) included
+LAUNCHES = {"nearest": 0, "anyhit": 0, "cluster_nearest": 0,
+            "cluster_anyhit": 0, "cluster_transmit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

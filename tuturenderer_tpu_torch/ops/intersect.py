@@ -1,15 +1,21 @@
-"""Ray/scene intersection for dense scenes (fewer than 4096 triangles).
+"""Ray/scene intersection.
 
-The port of ``tuturenderer_tpu/ops/intersect.py`` on its dense path:
-triangles go through the Woop intersection of ``ops/cuda/intersect.py`` (a
-CUDA kernel on the card, its plain PyTorch version on the CPU), spheres are
-plain tensor code. Acceptance rules mirror the reference:
+The port of ``tuturenderer_tpu/ops/intersect.py``. Triangles of a dense
+scene (fewer than 4096 triangles) go through the Woop kernels of
+``ops/cuda/intersect.py``; a scene with cluster tables goes through the
+cluster kernels of ``ops/cuda/cluster.py`` (nearest hit, any hit,
+transmittance). Each is a CUDA kernel on the card and its plain PyTorch
+version on the CPU. Spheres are plain tensor code. Acceptance rules mirror
+the reference:
 
 - triangles: |dir.n| >= 1e-4 and t, u, v, 1-u-v > 0 (Triangle.hpp:39-49);
 - spheres: smallest strictly-positive root (Sphere.hpp:83-93);
-- occlusion: a hit with t < dist and |t - dist| >= 1e-4 (BVH.hpp:184).
+- occlusion: a hit with t < dist and |t - dist| >= 1e-4 (BVH.hpp:184);
+- transmittance: the product of (1 - alpha) over every crossing with
+  t < dist (BVHStrategy.hpp:13-45).
 
-The alpha-shadow ``transmittance`` comes with ``alpha_shadows``.
+The JAX package traces a cluster scene's wavefront in octant-Morton order
+on the TPU; the port traces it in the caller's order.
 """
 from __future__ import annotations
 
@@ -20,8 +26,10 @@ import torch
 
 from ..scene.data import SPHERE, TRIANGLE, SceneData
 from ..utils.vec import Vec3, where as vwhere
-from .cuda.intersect import (F32_MAX, PARALLEL_EPS, pack_triangles_woop,
-                             tri_intersect, tri_occluded)
+from .cuda.cluster import (cluster_intersect, cluster_occluded,
+                           cluster_transmittance)
+from .cuda.intersect import (CHUNK, F32_MAX, PARALLEL_EPS,
+                             pack_triangles_woop, tri_intersect, tri_occluded)
 
 
 class HitCore(NamedTuple):
@@ -118,7 +126,10 @@ def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
     bool [N]): lanes with mask=False are traced as never-hit rays."""
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
-    if scene.n_tris:
+    if scene.clusters is not None:
+        t, idx, bu, bv = cluster_intersect(scene.clusters, *_rays(orig, d))
+        best = HitCore(t=t, kind=torch.zeros_like(idx), idx=idx, bu=bu, bv=bv)
+    elif scene.n_tris:
         t, idx, bu, bv = tri_intersect(pack_triangles_woop(scene),
                                        *_rays(orig, d))
         best = HitCore(t=t, kind=torch.zeros_like(idx), idx=idx, bu=bu, bv=bv)
@@ -149,11 +160,94 @@ def occluded(scene: SceneData, orig: Vec3, d: Vec3, dist,
         core = intersect_core(scene, orig, d)
         return core.hit & (core.t < dist) & \
             ((core.t - dist).abs() >= PARALLEL_EPS)
-    blocked = tri_occluded(pack_triangles_woop(scene), *_rays(orig, d),
-                           dist.contiguous())
+    if scene.clusters is not None:
+        blocked = cluster_occluded(scene.clusters, *_rays(orig, d),
+                                   dist.contiguous())
+    else:
+        blocked = tri_occluded(pack_triangles_woop(scene), *_rays(orig, d),
+                               dist.contiguous())
     if scene.n_spheres:
         blocked = blocked | _sphere_occluded(scene, orig, d, dist)
     return blocked
+
+
+def transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist,
+                  mask=None) -> torch.Tensor:
+    """Alpha-weighted shadow coefficient: the product of ``(1 - alpha)``
+    over every primitive the shadow ray crosses within ``dist``
+    (getShadowCoeffi/ShadowHelper, BVHStrategy.hpp:13-45,
+    BaseInterStrategy.hpp:25-43). Fully opaque occluders (alpha 1) give 0.
+    A cluster scene's triangles go through the transmittance kernel; a
+    dense scene's are evaluated here in chunks of 512, with the
+    Moller-Trumbore test of the JAX package's dense loop. ``dist`` is [N].
+    Dead lanes (mask False) get dist 0 and a degenerate ray:
+    transmittance 1."""
+    n = orig.x.shape[0]
+    if mask is not None:
+        orig, d = _mask_rays(orig, d, mask)
+        dist = torch.where(mask, dist, 0.0)
+
+    if scene.clusters is not None:
+        trans = cluster_transmittance(scene.clusters, *_rays(orig, d),
+                                      dist.contiguous())
+        if scene.n_spheres:
+            trans = trans * _sphere_transmittance(scene, orig, d, dist)
+        return trans
+
+    trans = torch.ones((n,), dtype=torch.float32, device=orig.x.device)
+    for lo in range(0, scene.n_tris, CHUNK):
+        sl = slice(lo, lo + CHUNK)
+        v0 = Vec3(scene.tv0.x[sl], scene.tv0.y[sl], scene.tv0.z[sl])
+        v1 = Vec3(scene.tv1.x[sl], scene.tv1.y[sl], scene.tv1.z[sl])
+        v2 = Vec3(scene.tv2.x[sl], scene.tv2.y[sl], scene.tv2.z[sl])
+        e1 = v1 - v0
+        e2 = v2 - v0
+        nrm = e1.cross(e2)
+        n_unit = nrm * (1.0 / torch.clamp(nrm.norm(), min=1e-30))
+        dx, dy, dz = d.x[:, None], d.y[:, None], d.z[:, None]
+        sx = orig.x[:, None] - v0.x[None, :]
+        sy = orig.y[:, None] - v0.y[None, :]
+        sz = orig.z[:, None] - v0.z[None, :]
+        s1x = dy * e2.z[None, :] - dz * e2.y[None, :]
+        s1y = dz * e2.x[None, :] - dx * e2.z[None, :]
+        s1z = dx * e2.y[None, :] - dy * e2.x[None, :]
+        s2x = sy * e1.z[None, :] - sz * e1.y[None, :]
+        s2y = sz * e1.x[None, :] - sx * e1.z[None, :]
+        s2z = sx * e1.y[None, :] - sy * e1.x[None, :]
+        det = s1x * e1.x[None, :] + s1y * e1.y[None, :] + s1z * e1.z[None, :]
+        dn = dx * n_unit.x[None, :] + dy * n_unit.y[None, :] \
+            + dz * n_unit.z[None, :]
+        inv = 1.0 / torch.where(det == 0.0, 1.0, det)
+        t = (s2x * e2.x[None, :] + s2y * e2.y[None, :]
+             + s2z * e2.z[None, :]) * inv
+        u = (s1x * sx + s1y * sy + s1z * sz) * inv
+        v = (s2x * dx + s2y * dy + s2z * dz) * inv
+        ok = (dn.abs() >= PARALLEL_EPS) & (det != 0.0) & (t > 0.0) \
+            & (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0) \
+            & (t < dist[:, None])
+        a = scene.materials.alpha[scene.tmat[sl].long()][None, :]   # [1,C]
+        trans = trans * torch.where(ok, 1.0 - a, 1.0).prod(dim=1)
+
+    if scene.n_spheres:
+        trans = trans * _sphere_transmittance(scene, orig, d, dist)
+    return trans
+
+
+def _sphere_transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist):
+    lx = orig.x[:, None] - scene.scenter.x[None, :]
+    ly = orig.y[:, None] - scene.scenter.y[None, :]
+    lz = orig.z[:, None] - scene.scenter.z[None, :]
+    b = d.x[:, None] * lx + d.y[:, None] * ly + d.z[:, None] * lz
+    c = lx * lx + ly * ly + lz * lz \
+        - scene.sradius[None, :] * scene.sradius[None, :]
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t1 = -b - sq
+    t2 = -b + sq
+    t = torch.where(t1 > 0.0, t1, t2)
+    ok = (disc >= 0.0) & (t > 0.0) & (t < dist[:, None])
+    a = scene.materials.alpha[scene.smat.long()][None, :]
+    return torch.where(ok, 1.0 - a, 1.0).prod(dim=1)
 
 
 def shade_hit(scene: SceneData, orig: Vec3, d: Vec3,

@@ -13,8 +13,12 @@ Two ways in:
   to numpy (dotted keys for nested fields, e.g. ``materials.diffuse.x``), so
   one built scene feeds both packages.
 
-Scenes with BVH or cluster tables (4096 triangles and more, or
-``use_bvh=True``) are not served yet and raise ``NotImplementedError``.
+From 4096 triangles up (or with ``use_bvh=True``) a scene carries cluster
+tables (``ops/cluster.py``), which its intersection then walks with the
+cluster kernels; smaller scenes are intersected densely. The JAX package
+also attaches an XLA BVH there (its CPU route); the port has none.
+
+Both ways in build on the card unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -24,6 +28,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..ops.cluster import (Clusters, build_clusters, clusters_from_numpy,
+                           woop_rows)
+from ..utils.device import DEFAULT_DEVICE, resolve
 from ..utils.vec import Vec3
 
 # material type enum (Material.hpp:9-16)
@@ -38,10 +45,8 @@ TRIANGLE = 0
 SPHERE = 1
 
 # the dense-streaming limit (tuturenderer_tpu/ops/bvh.py BVH_THRESHOLD):
-# from here up the JAX package attaches BVH and cluster tables
+# from here up a scene carries cluster tables
 BVH_THRESHOLD = 4096
-_CLUSTER_SCENES = ("scenes with BVH/cluster tables (>= 4096 triangles or "
-                   "use_bvh=True) come with ROADMAP queue 1 item 10")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +149,8 @@ class SceneData:
     # globals
     bkgcolor: Vec3            # Vec3 of 0-d tensors
     eta: torch.Tensor         # scene index of refraction (0-d)
+    # cluster tables of a mesh-scale scene (None = dense intersection)
+    clusters: Optional[Clusters]
     # Woop triangle transform: rows of the inverse [e1 e2 n] basis,
     # factorised in float64 on the host. woop_w [3, 3T]; woop_c [3T]
     # (row . v0 offsets); woop_nlen [T] (|n|)
@@ -169,12 +176,6 @@ class SceneData:
     @property
     def device(self) -> torch.device:
         return self.tarea.device
-
-
-def _check_dense(n_tris: int):
-    if n_tris >= BVH_THRESHOLD:
-        raise NotImplementedError(
-            f"{n_tris} triangles: {_CLUSTER_SCENES}")
 
 
 def _stack_textures(textures: List[np.ndarray], device) -> TextureAtlas:
@@ -295,10 +296,11 @@ class SceneBuilder:
         self._sph_mat.append(int(material))
 
     # ---- build ----
-    def build(self, use_bvh=None, device="cpu") -> SceneData:
+    def build(self, use_bvh=None, device=DEFAULT_DEVICE) -> SceneData:
         """Tensors on ``device``. ``use_bvh=True``, or None with 4096
-        triangles or more, asks for BVH/cluster tables, which this package
-        does not build yet: it raises."""
+        triangles or more, attaches cluster tables, with per-triangle
+        alphas from the materials (the transmittance kernel reads them)."""
+        device = resolve(device)
         if self._tris:
             verts = np.concatenate(self._tris, 0)
             normals = np.concatenate(self._tri_normals, 0)
@@ -309,9 +311,6 @@ class SceneBuilder:
             normals = np.zeros((0, 3, 3), np.float32)
             uvs = np.zeros((0, 3, 2), np.float32)
             tmat = np.zeros((0,), np.int32)
-        if use_bvh:
-            raise NotImplementedError(f"use_bvh=True: {_CLUSTER_SCENES}")
-        _check_dense(verts.shape[0])
         e1 = verts[:, 1] - verts[:, 0]
         e2 = verts[:, 2] - verts[:, 0]
         tcross = np.cross(e1, e2)
@@ -435,40 +434,37 @@ class SceneBuilder:
             bkgcolor=Vec3(f32(self.bkgcolor[0]), f32(self.bkgcolor[1]),
                           f32(self.bkgcolor[2])),
             eta=f32(self.eta),
+            clusters=self._maybe_clusters(verts, tmat, use_bvh, device),
             **{k: f32(v) for k, v in _woop_arrays(verts).items()},
             has_textures=any(len(v) > 0 for v in self.textures.values()),
             mtype_set=tuple(sorted(set(int(x) for x in m['mtype']))),
         )
 
+    def _maybe_clusters(self, verts, tmat, use_bvh, device):
+        if use_bvh is None:
+            use_bvh = verts.shape[0] >= BVH_THRESHOLD
+        if not use_bvh or verts.shape[0] == 0:
+            return None
+        alphas = np.asarray(self._mat['alpha'], np.float32)[tmat]
+        return clusters_from_numpy(build_clusters(verts, alphas=alphas),
+                                   device)
+
 
 def _woop_arrays(verts: np.ndarray):
-    """Per-triangle inverse-basis rows, factorised in float64 on the host
-    (SceneBuilder._woop_arrays of the JAX package, same numpy calls, so the
-    rows are bit-equal). For triangle (v0, e1, e2) with n = e1 x e2, the
-    inverse of the column basis [e1 e2 n] has rows r1, r2, r3 = n/|n|^2; a
-    point p maps to barycentric (u, v, w) = rows . (p - v0)."""
+    """Per-triangle inverse-basis rows (``ops/cluster.py::woop_rows``, the
+    float64 factorisation of the JAX package, so the rows are bit-equal),
+    laid out for the dense tables: woop_w [3, 3T] with
+    w[k, 3*i + j] = rows[i, j, k], woop_c [3T], woop_nlen [T]."""
     t = verts.shape[0]
     if t == 0:
         return dict(woop_w=np.zeros((3, 0), np.float32),
                     woop_c=np.zeros((0,), np.float32),
                     woop_nlen=np.zeros((0,), np.float32))
-    v0 = verts[:, 0].astype(np.float64)
-    e1 = verts[:, 1].astype(np.float64) - v0
-    e2 = verts[:, 2].astype(np.float64) - v0
-    n = np.cross(e1, e2)
-    basis = np.stack([e1, e2, n], axis=2)        # [T,3,3] columns
-    det = np.linalg.det(basis)
-    ok = np.abs(det) > 1e-30
-    safe = basis.copy()
-    safe[~ok] = np.eye(3)
-    rows = np.linalg.inv(safe)                   # [T,3,3] rows r1,r2,r3
-    rows[~ok] = 0.0
-    c = np.einsum('tij,tj->ti', rows, v0)        # [T,3]: c[i,j] = row_j.v0
-    # layout: w[k, 3*i + j] = rows[i, j, k]
+    rows, c, nlen = woop_rows(verts)
     w = rows.transpose(2, 0, 1).reshape(3, 3 * t)
     return dict(woop_w=w.astype(np.float32),
                 woop_c=c.reshape(-1).astype(np.float32),
-                woop_nlen=np.linalg.norm(n, axis=1).astype(np.float32))
+                woop_nlen=nlen.astype(np.float32))
 
 
 _NESTED = {"materials": MaterialTable, "diffuse_maps": TextureAtlas,
@@ -480,7 +476,7 @@ _STATIC = ("has_textures", "mtype_set")
 def _fields_from_flat(cls, arrays, prefix, device):
     kw = {}
     for f in dataclasses.fields(cls):
-        if f.name in _STATIC:
+        if f.name in _STATIC or f.name == "clusters":
             continue
         key = prefix + f.name
         if f.name in _NESTED:
@@ -495,17 +491,24 @@ def _fields_from_flat(cls, arrays, prefix, device):
     return kw
 
 
-def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
+def scene_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> SceneData:
     """SceneData from the JAX ``SceneData`` fields flattened to numpy.
 
     Keys are field names, dotted for nested fields (``tv0.x``,
     ``materials.diffuse.x``, ``diffuse_maps.rgb``, ``bkgcolor.x``), the
     static fields ``has_textures`` and ``mtype_set`` included. dtypes are
-    kept as given (float32 and int32 in a JAX scene)."""
-    if any(k.split(".")[0] in ("bvh", "clusters") for k in arrays):
-        raise NotImplementedError(f"BVH/cluster tables: {_CLUSTER_SCENES}")
-    _check_dense(np.asarray(arrays["tmat"]).shape[0])
+    kept as given (float32 and int32 in a JAX scene).
+
+    A mesh-scale scene's ``clusters.aabb``, ``.woop``, ``.tri_idx``,
+    ``.scene_lo`` and ``.scene_hi`` become its cluster tables, with the
+    port's tree built from ``aabb``. ``bvh.*`` keys are ignored: the port
+    has no XLA BVH (the JAX package's CPU route)."""
+    device = resolve(device)
+    prefix = "clusters."
+    cl = {k[len(prefix):]: v for k, v in arrays.items()
+          if k.startswith(prefix)}
     return SceneData(
         **_fields_from_flat(SceneData, arrays, "", device),
+        clusters=clusters_from_numpy(cl, device) if cl else None,
         has_textures=bool(np.asarray(arrays["has_textures"])),
         mtype_set=tuple(int(x) for x in np.ravel(arrays["mtype_set"])))

@@ -10,15 +10,16 @@ from __future__ import annotations
 import numpy as np
 
 from ..camera import make_camera
+from ..utils.device import DEFAULT_DEVICE
 from .data import (LAMBERTIAN, PERFECT_REFLECTIVE, PERFECT_REFRACTIVE,
                    SceneBuilder)
 
 
 def simple_box(width: int = 256, height: int = 256, use_bvh=None,
-               device="cpu"):
+               device=DEFAULT_DEVICE):
     """A Cornell-like box of explicit quads (12 triangles, an emissive
     quad) plus a mirror and a glass sphere. Returns (scene, camera) with
-    tensors on ``device``."""
+    tensors on ``device``, the card unless asked otherwise."""
     b = SceneBuilder(bkgcolor=(0.0, 0.0, 0.0), eta=1.0)
     white = b.add_material(LAMBERTIAN, diffuse=(0.73, 0.73, 0.73))
     red = b.add_material(LAMBERTIAN, diffuse=(0.65, 0.05, 0.05))
