@@ -7,14 +7,15 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: name, power limit, torch and CUDA versions;
-2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``
-   and ``cluster_walk.cu``, one process each, started together;
-3. each dense intersection kernel (K1, K2) against its plain PyTorch
-   version on the card: simple_box's 12 triangles at 1,048,576 rays, a
-   4095-triangle soup at 65,536 rays, rays aimed at shared edges and
-   vertices, and shadow distances at 0.5x, 1x, 2x and within 1e-4 of the
-   hit distance; with the device time of each, from the profiler's CUDA
-   trace;
+2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``,
+   ``cluster_walk.cu`` and ``proto_visit.cu``, one process each, started
+   together;
+3. each dense intersection kernel, in the Woop form (K1, K2) and the
+   Moller-Trumbore form (K3, K4), against its plain PyTorch version on the
+   card: simple_box's 12 triangles at 1,048,576 rays, a 4095-triangle soup
+   at 65,536 rays, rays aimed at shared edges and vertices, and shadow
+   distances at 0.5x, 1x, 2x and within 1e-4 of the hit distance; with the
+   device time of each, from the profiler's CUDA trace;
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
    on the card, with the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
@@ -32,7 +33,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    with ``alpha_shadows``, each with its exact launch counts;
 8. the mesh-scale renders at the stored JAX references' size against
    those images (``tests/data/torch_*_jax_ref.npy``, made by
-   ``tests/data/make_torch_mesh_refs.py``).
+   ``tests/data/make_torch_mesh_refs.py``);
+9. the dense training path: forward and backward of
+   ``mean(render_diff(simple_box(1024, 1024)))`` at 8 spp under the MT
+   form (K3/K4), with exact launch counts, finite gradients, a central
+   finite difference of the red wall's diffuse red channel, rays/s and the
+   peak device memory at 2 and at 8 spp;
+10. the mesh-scale training path: the same for ``sphere_showcase(256,
+    256)`` at 8 spp through K5/K6, on the sphere's diffuse red channel;
+11. a few steps of the inverse-rendering loop (``grad.invert_materials``)
+    on simple_box from a wrong red-wall albedo;
+12. the card's images and gradients against the stored JAX gradients
+    (``tests/data/torch_grad_*_jax_ref.npz``, made by
+    ``tests/data/make_torch_grad_refs.py``);
+13. the visit-walk probe (K8): ``tools/proto_visit.py``'s ``main`` (its two
+    scenarios at 1,024 clusters and 64 tiles), then each scenario, and one
+    with dead lanes, against the plain version, with its device time.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -40,6 +56,7 @@ exits with code 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -52,29 +69,45 @@ import torch
 
 REF_IMAGE = "tests/data/torch_simple_box_jax_ref.npy"
 REF_SIZE, REF_SPP, REF_SEED = (24, 20), 4, 3   # how the reference was made
-SOURCES = {"nearest": "tuturenderer_tpu_torch/csrc/dense_intersect.cu",
-           "anyhit": "tuturenderer_tpu_torch/csrc/dense_intersect.cu",
-           "cluster_nearest": "tuturenderer_tpu_torch/csrc/cluster_walk.cu",
-           "cluster_anyhit": "tuturenderer_tpu_torch/csrc/cluster_walk.cu",
-           "cluster_transmit": "tuturenderer_tpu_torch/csrc/cluster_walk.cu"}
+DENSE_SRC = "tuturenderer_tpu_torch/csrc/dense_intersect.cu"
+CLUSTER_SRC = "tuturenderer_tpu_torch/csrc/cluster_walk.cu"
+SOURCES = {"nearest": DENSE_SRC, "anyhit": DENSE_SRC,
+           "mt_nearest": DENSE_SRC, "mt_anyhit": DENSE_SRC,
+           "cluster_nearest": CLUSTER_SRC, "cluster_anyhit": CLUSTER_SRC,
+           "cluster_transmit": CLUSTER_SRC,
+           "proto_visit": "tuturenderer_tpu_torch/csrc/proto_visit.cu"}
 REPLACES = {"nearest": "tuturenderer_tpu/ops/pallas/intersect.py:164",
             "anyhit": "tuturenderer_tpu/ops/pallas/intersect.py:218",
+            "mt_nearest": "tuturenderer_tpu/ops/pallas/intersect.py:41",
+            "mt_anyhit": "tuturenderer_tpu/ops/pallas/intersect.py:246",
             "cluster_nearest": "tuturenderer_tpu/ops/pallas/cluster.py:509",
             "cluster_anyhit": "tuturenderer_tpu/ops/pallas/cluster.py:518",
-            "cluster_transmit": "tuturenderer_tpu/ops/pallas/cluster.py:526"}
+            "cluster_transmit": "tuturenderer_tpu/ops/pallas/cluster.py:526",
+            "proto_visit": "tools/proto_visit.py:27"}
 KERNEL_NAMES = {"nearest": "woop_nearest", "anyhit": "woop_anyhit",
+                "mt_nearest": "mt_nearest", "mt_anyhit": "mt_anyhit",
                 "cluster_nearest": "cluster_nearest",
                 "cluster_anyhit": "cluster_anyhit",
-                "cluster_transmit": "cluster_transmit"}
+                "cluster_transmit": "cluster_transmit",
+                "proto_visit": "visit_walk"}
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM bytes/s and
 # fp32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-FLOP_PER_TEST = 30      # one ray/triangle test: ~30 fp32 operations
+FLOP_PER_TEST = 30      # one Woop ray/triangle test: ~30 fp32 operations
+FLOP_PER_MT_TEST = 55   # one Moller-Trumbore test (ops/pallas/intersect.py:146)
+FLOP_PER_PLANE = 12     # one K8 plane test: 6 mul, 5 add, 1 div
 SHADOW_DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
                 (1.0, -5e-5), (1.0, 2e-4), (1.0, -2e-4))
 # the mesh-scale references: name -> (scene, RenderOptions fields), as in
 # tests/torch_port_util.py MESH_CASES (tests/data/make_torch_mesh_refs.py)
+# the stored JAX gradients: name -> RenderOptions fields, as in
+# tests/torch_port_util.py GRAD_CASES (tests/data/make_torch_grad_refs.py)
+GRAD_REFS = {"diffuse-mis": {"spp": 2, "max_depth": 3},
+             "ggx-nee": {"spp": 4, "max_depth": 0, "mis": False}}
+GRAD_SEED = 7
+GRAD_LEAVES = ("diffuse.x", "diffuse.y", "diffuse.z", "emission.x",
+               "emission.y", "emission.z", "roughness", "metallic")
 MESH_REFS = {"showcase-mis": ("showcase", {}),
              "showcase-nee": ("showcase", {"mis": False}),
              "translucent-alpha": ("translucent", {"alpha_shadows": True}),
@@ -144,13 +177,34 @@ def edge_rays(scene, eye: torch.Tensor, device):
     return eye[None, :].expand_as(d).contiguous(), d
 
 
-def compare_kernels(name: str, table, o, d, report: dict):
-    """Kernel vs plain on one ray set, nearest hit and any hit; returns the
-    kernel and plain median times (ms)."""
+def dense_form(form: str) -> dict:
+    """The dense kernels of one form: their LAUNCHES keys, table packer,
+    wrappers and plain versions, the plain per-triangle test, the table
+    row width, the fp32 operations per test and the TPU kernels' names."""
     from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    if form == "woop":
+        return dict(keys=("nearest", "anyhit"), pack=K.pack_triangles_woop,
+                    near=K.tri_intersect, near_plain=K.tri_intersect_plain,
+                    occ=K.tri_occluded, occ_plain=K.tri_occluded_plain,
+                    tile=K._woop_tile, floats=K.TRI_FLOATS,
+                    flop=FLOP_PER_TEST, labels=("K1", "K2"))
+    return dict(keys=("mt_nearest", "mt_anyhit"), pack=K.pack_triangles,
+                near=K.tri_intersect_mt, near_plain=K.tri_intersect_mt_plain,
+                occ=K.tri_occluded_mt, occ_plain=K.tri_occluded_mt_plain,
+                tile=K._mt_tile, floats=K.MT_FLOATS, flop=FLOP_PER_MT_TEST,
+                labels=("K3", "K4"))
+
+
+def compare_kernels(name: str, form: str, scene, o, d, report: dict):
+    """Kernel vs plain on one ray set, nearest hit and any hit, in one
+    dense form; returns the kernel and plain device times (ms)."""
+    f = dense_form(form)
+    k_near, k_occ = f["keys"]
+    table = f["pack"](scene)
+    name = f"{name} [{'/'.join(f['labels'])}]"
     rays = cols(o) + cols(d)
-    tk, ik, uk, vk = K.tri_intersect(table, *rays)
-    tp, ip, up, vp = K.tri_intersect_plain(table, *rays)
+    tk, ik, uk, vk = f["near"](table, *rays)
+    tp, ip, up, vp = f["near_plain"](table, *rays)
     torch.cuda.synchronize()
     hk, hp = ik >= 0, ip >= 0
     agree = (hk == hp).float().mean().item()
@@ -176,32 +230,31 @@ def compare_kernels(name: str, table, o, d, report: dict):
     if uv_err > 1e-5:
         raise AssertionError(f"{name}: barycentrics differ by {uv_err}")
     err = max(t_err, uv_err)
-    report["nearest"] = max(report.get("nearest", 0.0), err)
+    report[k_near] = max(report.get(k_near, 0.0), err)
 
     # shadow rays: dist at 0.5x, 1x, 2x and within 1e-4 of the hit
     t_ref = torch.where(hp, tp, torch.full_like(tp, 10.0))
     any_err = 0.0
-    for f, off in ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
-                   (1.0, -5e-5), (1.0, 2e-4), (1.0, -2e-4)):
-        dist = (t_ref * f + off).contiguous()
-        bk = K.tri_occluded(table, *rays, dist)
-        bp = K.tri_occluded_plain(table, *rays, dist)
+    for fac, off in SHADOW_DISTS:
+        dist = (t_ref * fac + off).contiguous()
+        bk = f["occ"](table, *rays, dist)
+        bp = f["occ_plain"](table, *rays, dist)
         n_diff = int((bk != bp).sum())
         any_err = max(any_err, float(n_diff > 0))
-        log(f"  {name}: any-hit dist=t*{f}{off:+g} blocked="
+        log(f"  {name}: any-hit dist=t*{fac}{off:+g} blocked="
             f"{bp.float().mean().item():.4f} disagree={n_diff}")
         if n_diff:
             raise AssertionError(f"{name}: any-hit disagrees on {n_diff} rays")
-    report["anyhit"] = max(report.get("anyhit", 0.0), any_err)
+    report[k_occ] = max(report.get(k_occ, 0.0), any_err)
 
     dist = (t_ref * 2.0).contiguous()
-    calls = {"nearest": lambda: K.tri_intersect(table, *rays),
-             "nearest_plain": lambda: K.tri_intersect_plain(table, *rays),
-             "anyhit": lambda: K.tri_occluded(table, *rays, dist),
-             "anyhit_plain": lambda: K.tri_occluded_plain(table, *rays, dist)}
+    calls = {k_near: lambda: f["near"](table, *rays),
+             k_near + "_plain": lambda: f["near_plain"](table, *rays),
+             k_occ: lambda: f["occ"](table, *rays, dist),
+             k_occ + "_plain": lambda: f["occ_plain"](table, *rays, dist)}
     ms = {k: device_ms(fn) for k, fn in calls.items()}
     wall = {k: wall_ms(fn) for k, fn in calls.items()}
-    for k in ("nearest", "anyhit"):
+    for k in (k_near, k_occ):
         log(f"  {name}: {k} device ms kernel={ms[k]:.4f} "
             f"plain={ms[k + '_plain']:.4f}; per call with launch overhead "
             f"kernel={wall[k]:.4f} plain={wall[k + '_plain']:.4f}")
@@ -225,7 +278,7 @@ def phase_device():
 def phase_build():
     log("== phase 2: build")
     from tuturenderer_tpu_torch.ops.cuda import build
-    names = ("dense_intersect", "cluster_walk")
+    names = ("dense_intersect", "cluster_walk", "proto_visit")
     t0 = time.perf_counter()
     build.load_all(names)
     secs = time.perf_counter() - t0
@@ -243,17 +296,16 @@ def phase_build():
 
 
 def phase_kernels(dev):
-    log("== phase 3: kernels vs plain on the card")
-    from tuturenderer_tpu_torch.ops.cuda.intersect import pack_triangles_woop
+    log("== phase 3: dense kernels vs plain on the card, Woop (K1/K2) and "
+        "Moller-Trumbore (K3/K4)")
     from tuturenderer_tpu_torch.scene.data import SceneBuilder
     from tuturenderer_tpu_torch.scene.presets import simple_box
     gen = torch.Generator(device=dev).manual_seed(0)
-    report, times = {}, {}
+    report, times, bounds = {}, {}, {}
 
     # simple_box: 2^19 camera rays (a checkerboard of the 1024^2 frame) and
     # 2^19 bounce rays from random points inside the box
     scene, cam = simple_box(1024, 1024, device=dev)
-    table = pack_triangles_woop(scene)
     from tuturenderer_tpu_torch.camera import primary_ray
     ys, xs = torch.meshgrid(torch.arange(1024, device=dev),
                             torch.arange(1024, device=dev), indexing="ij")
@@ -266,14 +318,9 @@ def phase_kernels(dev):
     o = torch.cat([torch.stack(list(o_cam), 1), o_b])
     d = torch.cat([torch.stack(list(d_cam), 1), d_b])
     assert o.shape[0] == 1 << 20
-    times["simple_box"] = compare_kernels("simple_box 12 tris", table, o, d,
-                                          report)
-    bounds = dense_bounds(table, o, d)
-
     # rays at shared edges and vertices
     eye = torch.stack(list(cam.position)).to(dev)
     oe, de = edge_rays(scene, eye, dev)
-    compare_kernels("simple_box edges+vertices", table, oe, de, report)
 
     # a 4095-triangle soup, 65,536 rays
     r = np.random.RandomState(7)
@@ -283,46 +330,58 @@ def phase_kernels(dev):
     b.add_triangles((centers[:, None, :] + 0.6 * r.randn(4095, 3, 3))
                     .astype(np.float32), None, None, m)
     soup = b.build(device=dev)
-    o = torch.randn((65536, 3), generator=gen, device=dev) * 3.0
-    d = random_unit(65536, gen, dev)
-    times["soup"] = compare_kernels("soup 4095 tris", pack_triangles_woop(soup),
-                                    o, d, report)
+    o_s = torch.randn((65536, 3), generator=gen, device=dev) * 3.0
+    d_s = random_unit(65536, gen, dev)
+
+    for form in ("woop", "mt"):
+        times.update(compare_kernels("simple_box 12 tris", form, scene, o, d,
+                                     report))
+        bounds.update(dense_bounds(form, scene, o, d))
+        compare_kernels("simple_box edges+vertices", form, scene, oe, de,
+                        report)
+        times.update({f"soup_{k}": v for k, v in compare_kernels(
+            "soup 4095 tris", form, soup, o_s, d_s, report).items()})
     return report, times, bounds
 
 
-def bound(name: str, n_bytes: float, tests: float):
+def bound(name: str, n_bytes: float, tests: float,
+          flop_per_test: int = FLOP_PER_TEST):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
     rate and the tests' fp32 operations over the fp32 peak."""
     byte_ms = n_bytes / PEAK_BYTES * 1e3
-    op_ms = tests * FLOP_PER_TEST / PEAK_FP32 * 1e3
+    op_ms = tests * flop_per_test / PEAK_FP32 * 1e3
     by = "bytes" if byte_ms >= op_ms else "operations"
     log(f"  {name} bound: {n_bytes / 1e6:.2f} MB -> {byte_ms:.5f} ms, "
-        f"{tests:.4g} tests x {FLOP_PER_TEST} flop -> {op_ms:.5f} ms; "
+        f"{tests:.4g} tests x {flop_per_test} flop -> {op_ms:.5f} ms; "
         f"bound by {by}")
     return max(byte_ms, op_ms), by
 
 
-def dense_bounds(table, o, d) -> dict:
-    """K1/K2 bounds at the simple_box 1M-ray set: rays read once (24 bytes,
-    28 with dist), results written once (16, 4), the table once; tests:
-    every triangle for K1, up to the first blocker for K2 (at 2x the hit
-    distance, the timed set)."""
+def dense_bounds(form: str, scene, o, d) -> dict:
+    """A dense form's bounds at the simple_box 1M-ray set: rays read once
+    (24 bytes, 28 with dist), results written once (16, 4), the table
+    once; tests: every triangle for the nearest hit, up to the first
+    blocker for the any hit (at 2x the hit distance, the timed set)."""
     from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    f = dense_form(form)
+    k_near, k_occ = f["keys"]
+    table = f["pack"](scene)
     rays = cols(o) + cols(d)
-    n, n_tris = o.shape[0], table.shape[0] // K.TRI_FLOATS
-    t, idx, _, _ = K.tri_intersect_plain(table, *rays)
+    n, n_tris = o.shape[0], table.shape[0] // f["floats"]
+    t, idx, _, _ = f["near_plain"](table, *rays)
     dist = torch.where(idx >= 0, t, torch.full_like(t, 10.0)) * 2.0
-    tt, _, _, ok = K._woop_tile(table.reshape(-1, K.TRI_FLOATS),
-                                *[c[:, None] for c in rays])
+    tt, _, _, ok = f["tile"](table.reshape(-1, f["floats"]),
+                             *[c[:, None] for c in rays])
     d2 = dist[:, None]
     ok = ok & (tt < d2) & ((tt - d2).abs() >= K.PARALLEL_EPS)
     first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1,
                         torch.full_like(idx, n_tris, dtype=torch.int64))
     tbytes = table.numel() * 4
-    return {"nearest": bound("K1 simple_box 1M", n * 40 + tbytes,
-                             n * n_tris),
-            "anyhit": bound("K2 simple_box 1M", n * 32 + tbytes,
-                            float(first.sum()))}
+    k1, k2 = f["labels"]
+    return {k_near: bound(f"{k1} simple_box 1M", n * 40 + tbytes,
+                          n * n_tris, f["flop"]),
+            k_occ: bound(f"{k2} simple_box 1M", n * 32 + tbytes,
+                         float(first.sum()), f["flop"])}
 
 
 def phase_slice(dev):
@@ -358,25 +417,31 @@ def phase_slice(dev):
     return launches
 
 
-def report_render(scene, cam, opts, img, wall: float, dev):
-    """Log wall time, image mean and rays/s of a render. Live-lane fractions
-    per bounce come from one sample at every 4th pixel: 2 rays
-    (intersection + shadow) per live lane and bounce, 1 for the epilogue's
-    pending lanes (the accounting of bench.py)."""
+def rays_per_path(scene, cam, opts, dev):
+    """(rays per path, live-lane fractions): the fractions entering each
+    bounce come from one sample at every 4th pixel; 2 rays (intersection +
+    shadow) per live lane and bounce, 1 for the epilogue's pending lanes
+    (the accounting of bench.py:37-63)."""
     from tuturenderer_tpu_torch.camera import primary_ray
     from tuturenderer_tpu_torch.integrators.path import trace_rays
     lane = torch.arange(0, cam.n_pixels, 4, dtype=torch.int32, device=dev)
     o, d, _ = primary_ray(cam, lane % cam.width, lane // cam.width)
-    _, counts = trace_rays(scene, cam, o, d, lane, 0, 0, opts,
-                           collect_alive=True)
+    with torch.no_grad():
+        _, counts = trace_rays(scene, cam, o, d, lane, 0, 0, opts,
+                               collect_alive=True)
     fracs = counts.double().cpu().numpy() / lane.shape[0]
-    rays_per_path = 2.0 * fracs[:-1].sum() + fracs[-1]
+    return 2.0 * fracs[:-1].sum() + fracs[-1], fracs
+
+
+def report_render(scene, cam, opts, img, wall: float, dev):
+    """Log wall time, image mean and rays/s of a render."""
+    rpp, fracs = rays_per_path(scene, cam, opts, dev)
     primary = cam.n_pixels * opts.spp
     mean = img.mean().item()
     log(f"render: wall={wall:.3f} s  image mean={mean:.6f}  "
         f"primary rays/s={primary / wall / 1e6:.2f} M  "
-        f"total rays/s={primary * rays_per_path / wall / 1e6:.2f} M  "
-        f"(rays/path={rays_per_path:.4f}, live fractions="
+        f"total rays/s={primary * rpp / wall / 1e6:.2f} M  "
+        f"(rays/path={rpp:.4f}, live fractions="
         f"{np.round(fracs, 4).tolist()})")
 
 
@@ -684,6 +749,322 @@ def phase_mesh_references(dev):
                           RenderOptions(spp=REF_SPP, **fields), path)
 
 
+@contextlib.contextmanager
+def dense_kernel(form: str):
+    """The port's dense route in ``form`` within the block."""
+    from tuturenderer_tpu_torch.ops import intersect as TI
+    saved = TI.DENSE_KERNEL
+    TI.DENSE_KERNEL = form
+    try:
+        yield
+    finally:
+        TI.DENSE_KERNEL = saved
+
+
+def fwd_bwd(scene, cam, opts, seed: int = 1):
+    """Forward and backward of mean(render_diff) with every launch count
+    zeroed just before -> (image, gradient leaves, wall s, launches, peak
+    device bytes during the call, bytes allocated before it)."""
+    from tuturenderer_tpu_torch.grad import (MaterialParams, get_params,
+                                             render_diff)
+    from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in get_params(scene).leaves()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    img = render_diff(MaterialParams.from_leaves(leaves), scene, cam, opts,
+                      seed)
+    grads = torch.autograd.grad(img.mean(), leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    grads = [torch.zeros_like(a) if g is None else g
+             for a, g in zip(leaves, grads)]
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("render_diff produced non-finite pixels")
+    bad = [GRAD_LEAVES[i] for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"non-finite gradient leaves: {bad}")
+    return img.detach(), grads, wall, launches, peak, before
+
+
+def fd_check(name: str, scene, cam, opts, seed: int, leaf: int, idx: int,
+             ad: float, eps: float = 1e-2):
+    """Central finite difference of the image mean in one parameter, at the
+    gradient's seed; relative error < 0.05 (bench.py:183-195)."""
+    from tuturenderer_tpu_torch.grad import (MaterialParams, get_params,
+                                             render_diff)
+    flat = get_params(scene).leaves()
+
+    def loss(sign: float) -> float:
+        fl = [a.clone() for a in flat]
+        fl[leaf][idx] += sign * eps
+        with torch.no_grad():
+            return render_diff(MaterialParams.from_leaves(fl), scene, cam,
+                               opts, seed).double().mean().item()
+
+    fd = (loss(1.0) - loss(-1.0)) / (2 * eps)
+    rel = abs(fd - ad) / max(abs(fd), 1e-12)
+    log(f"{name}: d mean / d {GRAD_LEAVES[leaf]}[{idx}]: autograd {ad:.6g}, "
+        f"central difference (eps {eps}) {fd:.6g}, relative error "
+        f"{rel:.4f} (bar 0.05)")
+    if not ad or rel >= 0.05:
+        raise AssertionError(f"{name}: gradient and finite difference "
+                             "disagree")
+
+
+def report_fwd_bwd(name: str, scene, cam, opts, wall: float, peaks: dict,
+                   dev):
+    rpp, _ = rays_per_path(scene, cam, opts, dev)
+    rays = cam.n_pixels * opts.spp * rpp
+    log(f"{name}: forward+backward wall={wall:.3f} s  "
+        f"{rays / wall / 1e6:.2f} M rays/s ({rpp:.4f} rays/path, "
+        f"bench.py's accounting); peak device memory above the scene: "
+        + ", ".join(f"{spp} spp {gb:.3f} GB" for spp, gb in peaks.items()))
+
+
+def device_share(fn):
+    """(wall s, device s, the five kernels with the most device time as
+    (name, s, launches)) of one call under the profiler's CUDA trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted(prof.key_averages(),
+                    key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    return wall, busy, [(e.key[:60], e.self_device_time_total / 1e6, e.count)
+                        for e in events[:5]]
+
+
+def gather_backward_ms(dev, n: int = 1 << 20, m: int = 6, reps: int = 5):
+    """ms per call, between CUDA events around ``reps`` back-to-back calls,
+    of a per-lane gather from an [m] table at n lanes and its backward:
+    ``table[i]`` (the backward sorts the indices) and ``index_select``
+    (the backward adds into the rows), the two ways plain indexing can
+    take."""
+    table = torch.rand(m, device=dev, requires_grad=True)
+    idx = torch.randint(0, m, (n,), device=dev)
+    g = torch.rand(n, device=dev)
+
+    def by(gather) -> float:
+        call = lambda: torch.autograd.grad(gather(), table, g)
+        call()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    return by(lambda: table[idx]), \
+        by(lambda: torch.index_select(table, 0, idx))
+
+
+def phase_train_dense(dev) -> dict:
+    log("== phase 9: forward+backward of mean(render_diff(simple_box(1024, "
+        "1024))) at 8 spp, Moller-Trumbore form (K3/K4)")
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    with dense_kernel("mt"):
+        # warm-up at a small size (allocator, lazy module loads); not counted
+        fwd_bwd(*simple_box(64, 64, device=dev), RenderOptions(spp=1))
+        scene, cam = simple_box(1024, 1024, device=dev)
+        peaks, runs = {}, {}
+        for spp in (2, 8):
+            opts = RenderOptions(spp=spp)
+            img, grads, wall, launches, peak, before = fwd_bwd(scene, cam,
+                                                               opts)
+            depth = opts.max_depth + 1
+            check_launches(launches, {"mt_nearest": (3 * depth + 2) * spp,
+                                      "mt_anyhit": 3 * depth * spp})
+            peaks[spp] = (peak - before) / 1e9
+            runs[spp] = (img, grads, wall, launches)
+        img, grads, wall, launches = runs[8]
+        log(f"image mean={img.mean().item():.6f}; red wall diffuse gradient "
+            f"{[round(float(g[1]), 6) for g in grads[:3]]}")
+        report_fwd_bwd("simple_box 1024^2 x 8 spp", scene, cam, opts, wall,
+                       peaks, dev)
+        log(f"peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+            " GB allocated in all at 8 spp")
+        if peaks[8] > 1.5 * peaks[2]:
+            raise AssertionError("peak memory grows with spp")
+        # the red wall is material 1; diffuse.x is leaf 0
+        fd_check("simple_box", scene, cam, opts, 1, 0, 1, float(grads[0][1]))
+        wall1, busy, top = device_share(
+            lambda: fwd_bwd(scene, cam, RenderOptions(spp=1)))
+        log(f"one sample forward+backward under the profiler: wall "
+            f"{wall1:.3f} s, device busy {busy:.3f} s "
+            f"({busy / wall1 * 100:.1f} %); most device time: " +
+            "; ".join(f"{k} {t:.3f} s x{c}" for k, t, c in top))
+    ms_index, ms_select = gather_backward_ms(dev)
+    log(f"a gather from 6 rows at 1,048,576 lanes and its backward, per "
+        f"call between CUDA events: table[i] {ms_index:.3f} ms, "
+        f"index_select {ms_select:.3f} ms")
+    return launches
+
+
+def phase_train_mesh(dev) -> dict:
+    log("== phase 10: forward+backward of mean(render_diff(sphere_showcase("
+        "256, 256))) at 8 spp (K5/K6)")
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.options import RenderOptions
+    scene, cam = sphere_showcase(256, 256, device=dev)
+    opts = RenderOptions(spp=8)
+    img, grads, wall, launches, peak, before = fwd_bwd(scene, cam, opts)
+    depth = opts.max_depth + 1
+    check_launches(launches, {"cluster_nearest": (3 * depth + 2) * opts.spp,
+                              "cluster_anyhit": 3 * depth * opts.spp})
+    log(f"image mean={img.mean().item():.6f}")
+    report_fwd_bwd("sphere_showcase 256^2 x 8 spp", scene, cam, opts, wall,
+                   {8: (peak - before) / 1e9}, dev)
+    # the sphere is material 0
+    fd_check("sphere_showcase", scene, cam, opts, 1, 0, 0, float(grads[0][0]))
+    return launches
+
+
+def phase_training_steps(dev):
+    log("== phase 11: inverse rendering, 10 steps on simple_box(256, 256), "
+        "Moller-Trumbore form")
+    from tuturenderer_tpu_torch.grad import get_params, invert_materials
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.utils.vec import Vec3
+    with dense_kernel("mt"):
+        scene, cam = simple_box(256, 256, device=dev)
+        opts = RenderOptions(spp=4, samples_per_launch=4)
+        target = render(scene, cam, opts, seed=1000)
+        truth = get_params(scene)
+        # the red wall (material 1) starts at test_cli.py's wrong albedo
+        diffuse = [a.clone() for a in truth.diffuse]
+        for c, v in zip(diffuse, (0.2, 0.6, 0.7)):
+            c[1] = v
+        start = truth._replace(diffuse=Vec3(*diffuse))
+        t0 = time.perf_counter()
+        params, losses = invert_materials(start, target, scene, cam, opts,
+                                          steps=10, lr=5.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    red = lambda p: torch.stack([c[1] for c in p.diffuse]).cpu()
+    for step, loss in enumerate(losses):
+        log(f"  step {step}: loss {loss:.6f}")
+    log(f"red wall diffuse: start {red(start).tolist()} -> recovered "
+        f"{[round(v, 4) for v in red(params).tolist()]}, truth "
+        f"{[round(v, 4) for v in red(truth).tolist()]}; {wall:.2f} s for "
+        f"{len(losses)} steps")
+    gap = lambda p: float((red(p) - red(truth)).abs().sum())
+    # each step renders new samples, so the loss carries Monte Carlo noise:
+    # the last three steps' mean must be below the first step's loss
+    if not np.mean(losses[-3:]) < losses[0] or not gap(params) < gap(start):
+        raise AssertionError("the training steps did not lower the loss "
+                             "and move the albedo toward the truth")
+
+
+def phase_grad_references(dev):
+    log("== phase 12: the card's gradients against the stored JAX "
+        "gradients")
+    from tuturenderer_tpu_torch.camera import camera_from_numpy
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.data import scene_from_numpy
+    root = os.path.dirname(os.path.abspath(__file__))
+    with dense_kernel("mt"):
+        for name, fields in GRAD_REFS.items():
+            path = f"tests/data/torch_grad_{name.replace('-', '_')}_jax_ref.npz"
+            ref = dict(np.load(os.path.join(root, path)))
+            sub = lambda pre: {k[len(pre):]: v for k, v in ref.items()
+                               if k.startswith(pre)}
+            scene = scene_from_numpy(sub("scene."), device=dev)
+            cam = camera_from_numpy(sub("camera."), device=dev)
+            img, grads, _, _, _, _ = fwd_bwd(scene, cam,
+                                             RenderOptions(**fields),
+                                             seed=GRAD_SEED)
+            img = img.cpu().numpy()
+            close = np.isclose(img, ref["image"], rtol=1e-4,
+                               atol=1e-5).all(axis=-1)
+            rel_mean = abs(img.mean() - ref["image"].mean()) / \
+                ref["image"].mean()
+            worst = 0.0
+            for key, g in zip(GRAD_LEAVES, grads):
+                want = ref[f"grad.{key}"]
+                scale = max(np.abs(want).max(), 1e-12)
+                worst = max(worst, np.abs(g.cpu().numpy() - want).max() /
+                            scale)
+            log(f"{name}: pixels within rtol 1e-4 / atol 1e-5: "
+                f"{close.mean() * 100:.2f}% (bar 99%), image mean rel "
+                f"{rel_mean:.2e} (bar 0.5%), worst gradient leaf error "
+                f"{worst:.3g} of its largest magnitude (bar 1e-2)")
+            if close.mean() < 0.99 or rel_mean > 0.005 or worst > 1e-2:
+                raise AssertionError(f"{name}: the card's gradients disagree "
+                                     "with the JAX reference")
+
+
+def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
+    """K8 at the prototype's size: nc clusters, n_tiles tiles of 1024 rays
+    (tools/proto_visit.py main)."""
+    log("== phase 13: the visit-walk probe (K8)")
+    from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
+    from tuturenderer_tpu_torch.tools import proto_visit as P
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    P.main(nc=nc, n_tiles=n_tiles, reps=reps, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    check_launches(launches, {"proto_visit": 2 * (1 + reps)})
+
+    err = 0.0
+    for name in ("early", "full"):
+        for dead in (False, True):
+            a = P.scenario(name, nc, n_tiles)
+            if dead:
+                a["live"][P.TILE:2 * P.TILE:2] = 0.0    # tile 1 half dead
+                a["live"][3 * P.TILE:4 * P.TILE] = 0.0  # tile 3 wholly dead
+            args = P.tensors(a, dev)
+            t, idx = P.run(*args, nc=nc)
+            tp, ip, groups = P.walk_plain(*args, nc=nc)
+            torch.cuda.synchronize()
+            t_eq = bool((t == tp).all())
+            n_idx = int((idx != ip).sum())
+            log(f"  {name}{' with dead lanes' if dead else ''}: t bit-equal="
+                f"{t_eq} idx differs={n_idx}; groups walked per tile "
+                f"{sorted(set(groups.tolist()))}")
+            if not t_eq or n_idx:
+                raise AssertionError(f"K8 {name}: kernel and plain differ")
+            err = max(err, (t - tp).abs().max().item())
+            live_tile = slice(0, P.TILE)
+            P.check(name, t[live_tile], idx[live_tile])
+
+    # time, plane tests and bound at the full walk, the probe's heavy case
+    a = P.scenario("full", nc, n_tiles)
+    args = P.tensors(a, dev)
+    ms = device_ms(lambda: P.run(*args, nc=nc), reps=10, warm=2)
+    plain_ms = device_ms(lambda: P.run_plain(*args, nc=nc), reps=2, warm=1)
+    _, _, groups = P.walk_plain(*args, nc=nc)
+    tests = float(groups.sum()) * P.G * P.CS * P.TILE
+    n = n_tiles * P.TILE
+    walked = torch.cat([args[0].reshape(n_tiles, nc)[i, :int(g) * P.G]
+                        for i, g in enumerate(groups.tolist())])
+    n_bytes = n * (7 * 4 + 8) + n_tiles * nc * 8 + \
+        torch.unique(walked).numel() * P.CS * 4 * 4
+    log(f"  full walk: {n} rays x {nc} clusters: device ms kernel={ms:.4f} "
+        f"plain={plain_ms:.4f}; plane tests/ray={tests / n:.0f}")
+    b_ms, b_by = bound("K8 full walk", n_bytes, tests, FLOP_PER_PLANE)
+    return launches, err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -699,14 +1080,23 @@ def main() -> int:
     cl_errs, cl_stats = phase_cluster_kernels(dev)
     runs = phase_mesh_slice(dev)
     phase_mesh_references(dev)
+    train = phase_train_dense(dev)
+    phase_train_mesh(dev)
+    phase_training_steps(dev)
+    phase_grad_references(dev)
+    visit_launches, visit_err, visit = phase_visit(dev)
+    # K1/K2 launches from the simple_box render, K3/K4 from the dense
+    # training path's forward+backward; times and bounds at simple_box's
+    # 1,048,576 rays
+    launches.update({k: train[k] for k in ("mt_nearest", "mt_anyhit")})
     kernels = [{
         "name": KERNEL_NAMES[k], "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k], "launches": launches[k],
-        "max_abs_err": errs[k], "ms": times["simple_box"][k],
-        "plain_ms": times["simple_box"][k + "_plain"],
+        "max_abs_err": errs[k], "ms": times[k],
+        "plain_ms": times[k + "_plain"],
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
         "library_ms": None,
-    } for k in ("nearest", "anyhit")]
+    } for k in ("nearest", "anyhit", "mt_nearest", "mt_anyhit")]
     # launches from the render of each kernel's path: K5/K6 the
     # sphere_showcase render, K7 the translucent alpha render
     path_of = {"cluster_nearest": "sphere_showcase",
@@ -720,6 +1110,11 @@ def main() -> int:
         "bound_ms": cl_stats[k]["bound_ms"],
         "bound_by": cl_stats[k]["bound_by"], "library_ms": None,
     } for k in ("cluster_nearest", "cluster_anyhit", "cluster_transmit")]
+    kernels.append({
+        "name": KERNEL_NAMES["proto_visit"], "route": "cuda",
+        "source": SOURCES["proto_visit"], "replaces": REPLACES["proto_visit"],
+        "launches": visit_launches["proto_visit"], "max_abs_err": visit_err,
+        **visit, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,7 +5,9 @@ on a machine that has only PyTorch:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: exact. The kernels are built with --fmad=false and compute the
-plain versions' float32 expressions in the same order. The cluster kernels
+plain versions' float32 expressions in the same order (the dense kernels
+in both forms, Woop and Moller-Trumbore, and the visit-walk probe). The
+cluster kernels
 visit triangles in another order than their plain versions, so an exact t
 tie may keep another index (idx is compared where t is unique) and the
 transmittance product differs within rtol 1e-5 / atol 1e-6.
@@ -16,14 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from tuturenderer_tpu_torch import grad as G
 from tuturenderer_tpu_torch.camera import primary_ray
 from tuturenderer_tpu_torch.integrators.path import render
 from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+from tuturenderer_tpu_torch.ops import intersect as TI
 from tuturenderer_tpu_torch.ops.cuda import cluster as C
 from tuturenderer_tpu_torch.ops.cuda import intersect as K
 from tuturenderer_tpu_torch.options import RenderOptions
 from tuturenderer_tpu_torch.scene.data import SceneBuilder
 from tuturenderer_tpu_torch.scene.presets import simple_box
+from tuturenderer_tpu_torch.tools import proto_visit as P
 
 pytestmark = pytest.mark.gpu
 
@@ -170,3 +175,73 @@ def test_cluster_wrapper_raises_on_a_wrong_length_table(dev):
     with pytest.raises(ValueError):
         C.cluster_transmittance(bad, *rays, torch.ones_like(rays[0]))
     assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("which", ["simple_box", "soup4095"])
+def test_mt_kernels_equal_plain_versions(dev, which):
+    scene, o, d = _box(dev) if which == "simple_box" else _soup(dev)
+    table = K.pack_triangles(scene)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    before = dict(K.LAUNCHES)
+    got = K.tri_intersect_mt(table, *rays)
+    want = K.tri_intersect_mt_plain(table, *rays)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert bool((want[1] >= 0).any())
+    for scale in (0.5, 1.0, 2.0):
+        dist = torch.where(want[1] >= 0, want[0], 1.0) * scale
+        torch.testing.assert_close(
+            K.tri_occluded_mt(table, *rays, dist),
+            K.tri_occluded_mt_plain(table, *rays, dist))
+    assert K.LAUNCHES["mt_nearest"] == before["mt_nearest"] + 1
+    assert K.LAUNCHES["mt_anyhit"] == before["mt_anyhit"] + 3
+
+
+def _fwd_bwd(scene, cam, opts):
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in G.get_params(scene).leaves()]
+    img = G.render_diff(G.MaterialParams.from_leaves(leaves), scene, cam,
+                        opts, seed=1)
+    grads = torch.autograd.grad(img.mean(), leaves, allow_unused=True)
+    return img, [g for g in grads if g is not None]
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["dense-mt", "cluster"])
+def test_render_diff_goes_through_the_kernels(dev, monkeypatch, mesh):
+    """Forward and backward of the differentiable render: per sample batch
+    the forward pass, the batch's recomputation and each bounce's
+    recomputation launch the bounce kernels, and the epilogue's nearest
+    hit runs in the first two: 3 (max_depth + 1) + 2 nearest and
+    3 (max_depth + 1) shadow launches."""
+    monkeypatch.setattr(TI, "DENSE_KERNEL", "mt")
+    if mesh:
+        scene, cam = sphere_showcase(32, 24, nu=46, nv=46, device=dev)
+        near, shadow = "cluster_nearest", "cluster_anyhit"
+    else:
+        scene, cam = simple_box(32, 24, device=dev)
+        near, shadow = "mt_nearest", "mt_anyhit"
+    opts = RenderOptions(spp=2, max_depth=3)
+    before = dict(K.LAUNCHES)
+    img, grads = _fwd_bwd(scene, cam, opts)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    assert grads and all(bool(torch.isfinite(g).all()) for g in grads)
+    got = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want[near] = (3 * 4 + 2) * opts.spp
+    want[shadow] = 3 * 4 * opts.spp
+    assert got == want
+
+
+@pytest.mark.parametrize("name", ["early", "full"])
+def test_visit_walk_equals_plain_version(dev, name):
+    a = P.scenario(name, 128, 4)
+    a["live"][P.TILE:2 * P.TILE:2] = 0.0      # tile 1 half dead
+    a["live"][3 * P.TILE:] = 0.0              # tile 3 wholly dead
+    args = P.tensors(a, dev)
+    before = K.LAUNCHES["proto_visit"]
+    t, idx = P.run(*args, nc=128)
+    tp, ip = P.run_plain(*args, nc=128)
+    torch.testing.assert_close(t, tp, rtol=0, atol=0)
+    torch.testing.assert_close(idx, ip, rtol=0, atol=0)
+    P.check(name, t[:P.TILE], idx[:P.TILE])
+    assert K.LAUNCHES["proto_visit"] == before + 1

@@ -123,9 +123,7 @@ def test_samples_per_launch_and_sample_base_keep_the_stream(port_box):
 
 
 @pytest.mark.parametrize("opts", [
-    RenderOptions(spp=1, compaction=(1.0, 0.5)),
-    RenderOptions(spp=1, differentiable=True)],
-    ids=["compaction", "differentiable"])
+    RenderOptions(spp=1, compaction=(1.0, 0.5))], ids=["compaction"])
 def test_unported_options_raise(port_box, opts):
     scene, cam = port_box
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):

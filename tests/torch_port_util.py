@@ -14,7 +14,11 @@
   against them;
 - ``translucent_showcase`` builds sphere_showcase's geometry with the
   sphere's material at alpha 0.5 with either package's builder (the JAX
-  package has no such preset).
+  package has no such preset);
+- ``GRAD_CASES`` name the differentiable renders the port's gradients are
+  held to, ``GRAD_REFS`` where each is stored (``make_torch_grad_refs.py``:
+  the scene, camera, image and gradient leaves in one ``.npz``), and
+  ``jax_grad_case`` computes one with the JAX package.
 """
 from __future__ import annotations
 
@@ -162,3 +166,57 @@ def jax_mesh_render(name: str, scene=None, cam=None) -> np.ndarray:
     opts = RenderOptions(spp=REF_SPP, **MESH_CASES[name][1])
     with jax_route(name):
         return np.asarray(render(scene, cam, opts, seed=REF_SEED))
+
+
+# the differentiable renders: name -> (tests/test_grad.py scene, RenderOptions
+# fields); both at a 24x20 camera (test_grad.py's 32x32 puts pixel centres
+# on the quads' diagonals, where the two packages' roundings split a ray
+# between two triangles, or neither), seed 7, loss = the image mean
+GRAD_CASES = {
+    "diffuse-mis": ("diffuse_box", {"spp": 2, "max_depth": 3}),
+    "ggx-nee": ("ggx_box", {"spp": 4, "max_depth": 0, "mis": False}),
+}
+GRAD_SEED = 7
+GRAD_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
+                                f"torch_grad_{name.replace('-', '_')}"
+                                "_jax_ref.npz")
+             for name in GRAD_CASES}
+# the flat leaf order of MaterialParams in both packages
+GRAD_LEAVES = ("diffuse.x", "diffuse.y", "diffuse.z", "emission.x",
+               "emission.y", "emission.z", "roughness", "metallic")
+
+
+def jax_grad_scene(name: str):
+    """The JAX (scene, camera) of a GRAD_CASES entry."""
+    import test_grad
+    from tuturenderer_tpu.camera import make_camera
+    scene, _ = getattr(test_grad, GRAD_CASES[name][0])()
+    cam = make_camera(*REF_SIZE, 60, eye=(0, 0, -3.2), viewdir=(0, 0, 1),
+                      updir=(0, 1, 0))
+    return scene, cam
+
+
+def jax_grad_case(name: str) -> dict:
+    """{"scene.*", "camera.*", "image", "grad.<leaf>"} numpy arrays of a
+    GRAD_CASES entry: the JAX render_diff image and jax.grad of its mean,
+    one traced graph (the JAX package's CPU route: its XLA MT
+    intersection)."""
+    import jax
+    import jax.numpy as jnp
+    from tuturenderer_tpu.grad import get_params, render_diff
+    from tuturenderer_tpu.options import RenderOptions
+    scene, cam = jax_grad_scene(name)
+    opts = RenderOptions(differentiable=True, **GRAD_CASES[name][1])
+
+    def loss(p):
+        img = render_diff(p, scene, cam, opts, seed=GRAD_SEED)
+        return jnp.mean(img), img
+
+    (_, img), grads = jax.value_and_grad(loss, has_aux=True)(
+        get_params(scene))
+    out = {f"scene.{k}": v for k, v in flatten(scene).items()}
+    out.update({f"camera.{k}": v for k, v in flatten(cam).items()})
+    out["image"] = np.asarray(img)
+    for key, leaf in zip(GRAD_LEAVES, jax.tree.flatten(grads)[0]):
+        out[f"grad.{key}"] = np.asarray(leaf)
+    return out

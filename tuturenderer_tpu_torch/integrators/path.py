@@ -21,6 +21,17 @@ estimator is the reference's recursive ``traceRay``
 (PathTracing.hpp:281-347). ``alpha_shadows`` replaces the shadow any hit
 with the alpha-weighted transmittance in either estimator.
 
+``differentiable=True`` gives detached-sampling autodiff (``grad.py``): at
+every site where the JAX package applies ``stop_gradient`` (sampled
+directions, light points, pdfs, MIS weights and Russian-roulette
+probabilities) the port applies ``.detach()``, so gradients flow only
+through BSDF values, emission and cosine terms. Each bounce then runs
+under a non-reentrant ``torch.utils.checkpoint`` (the JAX package's
+per-bounce ``jax.checkpoint``): the backward pass recomputes a bounce from
+its carried state instead of keeping its [N]-wide intermediates. A
+recomputed bounce draws the same numbers (the RNG is a pure hash) and
+launches its kernels again.
+
 Each bounce makes one nearest-hit and one shadow call, so a sample launches
 the nearest-hit kernel (max_depth + 2) times and the any-hit (or, under
 ``alpha_shadows``, the transmittance) kernel (max_depth + 1) times: the
@@ -29,8 +40,8 @@ cluster tables. The JAX package keeps a cluster scene's wavefront sorted in
 octant-Morton order for its TPU tiles; the port traces it unsorted, so
 lanes stay in the caller's order.
 
-Not served yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``compaction`` and ``differentiable=True``.
+Not served yet, raising ``NotImplementedError`` with its ROADMAP item:
+``compaction``.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils import checkpoint
 
 from ..camera import Camera, primary_ray
 from ..materials import (MatParams, bxdf_eval, bxdf_pdf, bxdf_sample,
@@ -61,7 +73,6 @@ FROM_INDIRECT = 4   # NEE-only mode: indirect-illumination continuation
 # queue 1 item that brings it)
 _UNPORTED = (
     (lambda o: bool(o.compaction), "wavefront compaction", 9),
-    (lambda o: o.differentiable, "the differentiable renderer", 11),
 )
 
 
@@ -70,6 +81,25 @@ def _check_options(opts: RenderOptions):
         if asked(opts):
             raise NotImplementedError(
                 f"{what} comes with ROADMAP queue 1 item {item}")
+
+
+def _detacher(opts: RenderOptions):
+    """The JAX package's ``sg``: ``.detach()`` of a tensor or a Vec3 when
+    ``opts.differentiable`` is set, else the identity."""
+    if not opts.differentiable:
+        return lambda x: x
+    return lambda x: Vec3(*(c.detach() for c in x)) if isinstance(x, Vec3) \
+        else x.detach()
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint that the backward pass
+    re-runs whole (early stop off), so a recomputation launches exactly the
+    kernels the forward call did. ``fn`` draws no numbers from torch's
+    generators, so their state is not kept."""
+    with checkpoint.set_checkpoint_early_stop(False):
+        return checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                     preserve_rng_state=False)
 
 
 def _zeros3(n, device):
@@ -142,6 +172,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
     dev = orig.x.device
     eta_scene = scene.eta
     types = scene.mtype_set
+    sg = _detacher(opts)
 
     # per-lane sample index: one sample per launch, or a vector when the
     # caller batches several spp into one wavefront
@@ -203,7 +234,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         t_hit = torch.where(hit.hit, core.t, 1.0)
         r2 = t_hit * t_hit
         l_pdf_sa = light_pdf_a * r2 / torch.clamp(cos_prime, min=1e-20)
-        w_m = mis_power_weight(st['prev_pdf'], l_pdf_sa)
+        w_m = sg(mis_power_weight(st['prev_pdf'], l_pdf_sa))
         w_m = torch.where(st['prev_mirror1'], 1.0, w_m)
         good_em = bsdf_em & (cos_prime > 0.0) & st['em_ok'] & \
             (light_pdf_a > 0)
@@ -239,6 +270,8 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         ls = sample_light(scene, u(rng.LIGHT_PICK), u(rng.LIGHT_U),
                           u(rng.LIGHT_V), opts.tutu_light_pick,
                           opts.tutu_tri_sample)
+        ls = ls._replace(pos=sg(ls.pos), ng=sg(ls.ng),
+                         pdf_area=sg(ls.pdf_area))
         ray_inside = hit.ns.dot(wo) < 0.0
         sh_orig = hit.pos + vwhere(ray_inside, -hit.ns, hit.ns) * EPSILON
         lpos_off = ls.pos + ls.ng * EPSILON
@@ -253,10 +286,10 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         facing = wi_l.dot(ls.ng) <= 0.0          # PathTracing.hpp:197
         cos_p = ls.ng.normalized(1e-20).dot(-wi_l)
         nee_live = do_nee & ls.valid & ~blocked & facing & (cos_p > 0.0)
-        mat_pdf_l = bxdf_pdf(params, wi_l, wo, hit.ns, eta_scene,
-                             params.eta, types=types)
+        mat_pdf_l = sg(bxdf_pdf(params, wi_l, wo, hit.ns, eta_scene,
+                                params.eta, types=types))
         l_pdf_sa2 = ls.pdf_area * r2_l / torch.clamp(cos_p, min=1e-20)
-        w_l = mis_power_weight(l_pdf_sa2, mat_pdf_l)
+        w_l = sg(mis_power_weight(l_pdf_sa2, mat_pdf_l))
         f_r_l = bxdf_eval(params, wi_l, wo, hit.ng, hit.ns, eta_scene,
                           types=types)
         cos_t = hit.ng.dot(wi_l).abs()
@@ -276,9 +309,10 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         samp = bxdf_sample(params, wo, hit.ns, u(rng.BSDF_U0), u(rng.BSDF_U1),
                            u(rng.BSDF_LOTTERY), eta_scene,
                            opts.ggx_sample_bug, types=types)
+        samp = samp._replace(wi=sg(samp.wi))
         wi = samp.wi
-        mat_pdf = bxdf_pdf(params, wi, wo, hit.ns, eta_scene, params.eta,
-                           types=types)
+        mat_pdf = sg(bxdf_pdf(params, wi, wo, hit.ns, eta_scene, params.eta,
+                              types=types))
 
         #   refractive lanes: calcForRefractive (PathTracing.hpp:80-134)
         tir = samp.tir
@@ -294,7 +328,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
             torch.clamp(4.0 * wo.dot(h_tir), min=1e-20)
         pdf_tir = torch.where(is_mt, pdf_tir_mt, 1.0)
         wi = vwhere(refr & tir, wi_tir, wi)
-        mat_pdf = torch.where(refr & tir, pdf_tir, mat_pdf)
+        mat_pdf = torch.where(refr & tir, sg(pdf_tir), mat_pdf)
         eta_for_eval = torch.where(refr, eta_pass, eta_scene)
         eta_for_eval = torch.where(refr & ~tir, eta_scene, eta_for_eval)
 
@@ -308,7 +342,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
 
         #   RR draw happens at this vertex (PathTracing.hpp:263-268)
         tp_eff = tp if depth > opts.min_depth else _ones3(n, dev)
-        rr_prob = torch.clamp(tp_eff.max_component(), 0.0, 1.0) \
+        rr_prob = sg(torch.clamp(tp_eff.max_component(), 0.0, 1.0)) \
             if opts.russian_roulette else one
         rr_survive = u(rng.RR) <= rr_prob
 
@@ -366,7 +400,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         t_hit = torch.where(hit.hit, core.t, 1.0)
         l_pdf_sa = light_pdf_a * t_hit * t_hit / \
             torch.clamp(cos_prime, min=1e-20)
-        w_m = mis_power_weight(st['prev_pdf'], l_pdf_sa)
+        w_m = sg(mis_power_weight(st['prev_pdf'], l_pdf_sa))
         w_m = torch.where(st['prev_mirror1'], 1.0, w_m)
         good = emissive & (cos_prime > 0.0) & st['em_ok'] & (light_pdf_a > 0)
         w_m = torch.where(good, w_m, 0.0)
@@ -389,7 +423,8 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
     for depth in range(opts.max_depth + 1):
         if collect_alive:
             counts.append(st['alive'].sum())
-        st = bounce(st, depth)
+        st = _remat(bounce, st, depth) if opts.differentiable \
+            else bounce(st, depth)
     if collect_alive:
         counts.append(st['alive'].sum())
         return epilogue(st), torch.stack(counts)
@@ -426,6 +461,7 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
     dev = o.x.device
     eta_scene = scene.eta
     types = scene.mtype_set
+    sg = _detacher(opts)
     z3 = _zeros3(n, dev)
     one = torch.ones((n,), dtype=torch.float32, device=dev)
 
@@ -474,6 +510,7 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
     ls = sample_light(scene, u(rng.LIGHT_PICK), u(rng.LIGHT_U),
                       u(rng.LIGHT_V), opts.tutu_light_pick,
                       opts.tutu_tri_sample)
+    ls = ls._replace(pos=sg(ls.pos), ng=sg(ls.ng), pdf_area=sg(ls.pdf_area))
     ray_inside = hit.ng.dot(wo) < 0.0          # Ng (PathTracing.hpp:293)
     sh_orig = hit.pos + vwhere(ray_inside, -hit.ng, hit.ng) * EPSILON
     to_l = ls.pos - sh_orig                    # light position not offset
@@ -497,7 +534,7 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
 
     # ---- RR before sampling (hpp:315-319)
     tp_eff = tp if depth > opts.min_depth else _ones3(n, dev)
-    rr_prob = torch.clamp(tp_eff.max_component(), 0.0, 1.0) \
+    rr_prob = sg(torch.clamp(tp_eff.max_component(), 0.0, 1.0)) \
         if opts.russian_roulette else one
     rr_survive = u(rng.RR) <= rr_prob
 
@@ -505,9 +542,10 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
     samp = bxdf_sample(params, wo, hit.ns, u(rng.BSDF_U0), u(rng.BSDF_U1),
                        u(rng.BSDF_LOTTERY), eta_scene, opts.ggx_sample_bug,
                        types=types)
+    samp = samp._replace(wi=sg(samp.wi))
     wi = samp.wi
-    mat_pdf = bxdf_pdf(params, wi, wo, hit.ns, eta_scene, params.eta,
-                       types=types)
+    mat_pdf = sg(bxdf_pdf(params, wi, wo, hit.ns, eta_scene, params.eta,
+                          types=types))
 
     # refractive lanes: calcForRefractive, identical to the MIS mode
     tir = samp.tir
@@ -522,7 +560,7 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
         torch.clamp(4.0 * wo.dot(h_tir), min=1e-20)
     pdf_tir = torch.where(is_mt, pdf_tir_mt, 1.0)
     wi = vwhere(refr & tir, wi_tir, wi)
-    mat_pdf = torch.where(refr & tir, pdf_tir, mat_pdf)
+    mat_pdf = torch.where(refr & tir, sg(pdf_tir), mat_pdf)
     eta_for_eval = torch.where(refr, eta_pass, eta_scene)
     eta_for_eval = torch.where(refr & ~tir, eta_scene, eta_for_eval)
     f_r = bxdf_eval(params, wi, wo, hit.ng, hit.ns, eta_for_eval,

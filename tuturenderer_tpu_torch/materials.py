@@ -52,14 +52,20 @@ class MatParams(NamedTuple):
 
 
 def gather_material(scene: SceneData, mat_idx) -> MatParams:
-    """Per-lane rows of the material table (plain indexing)."""
+    """Per-lane rows of the material table (plain indexing).
+
+    ``index_select`` rather than ``table[i]``: the same values, and under
+    autograd its backward is an ``index_add_`` into the few table rows,
+    where that of ``table[i]`` sorts the [N] indices first, slow when a
+    million lanes share a handful of rows (chip_smoke.py times both)."""
     m = scene.materials
     i = torch.clamp(mat_idx, min=0).long()
-    g3 = lambda v: Vec3(v.x[i], v.y[i], v.z[i])
+    g = lambda t: torch.index_select(t, 0, i)
+    g3 = lambda v: Vec3(g(v.x), g(v.y), g(v.z))
     return MatParams(
-        mtype=m.mtype[i], diffuse=g3(m.diffuse), specular=g3(m.specular),
-        emission=g3(m.emission), alpha=m.alpha[i], eta=m.eta[i],
-        roughness=m.roughness[i], metallic=m.metallic[i])
+        mtype=g(m.mtype), diffuse=g3(m.diffuse), specular=g3(m.specular),
+        emission=g3(m.emission), alpha=g(m.alpha), eta=g(m.eta),
+        roughness=g(m.roughness), metallic=g(m.metallic))
 
 
 # ---------------------------------------------------------------- helpers

@@ -9,7 +9,7 @@ crossings within a distance) replace the Pallas TPU kernels
 launches its kernel from ``csrc/cluster_walk.cu`` (a per-ray walk of the
 tree in ``Clusters.node_box``/``node_link``) or raises; on a CPU tensor it
 runs the plain PyTorch version beside it, which is also the kernels'
-oracle on the card.
+oracle on the card. A wrapper refuses rays that require grad.
 
 The plain versions compute the same function densely: the same
 per-triangle arithmetic over every real row of the table (``tri_idx >= 0``,
@@ -32,7 +32,8 @@ import torch
 
 from ..cluster import CLUSTER_SIZE, WOOP_F
 from . import build
-from .intersect import CHUNK, F32_MAX, LAUNCHES, PARALLEL_EPS, _raise_on
+from .intersect import (CHUNK, F32_MAX, LAUNCHES, PARALLEL_EPS, _raise_on,
+                        refuse_grad)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +65,7 @@ def _check(clusters, cols, test_count) -> str:
                              f"got {a.dtype} of shape {tuple(a.shape)}")
         if a.shape[0] != n:
             raise ValueError("ray columns differ in length")
+    refuse_grad(cols)
     c = clusters.aabb.shape[0]
     k = clusters.node_box.shape[0]
     want = ((clusters.aabb, torch.float32, (c, 8)),

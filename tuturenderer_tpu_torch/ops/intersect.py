@@ -1,12 +1,14 @@
 """Ray/scene intersection.
 
 The port of ``tuturenderer_tpu/ops/intersect.py``. Triangles of a dense
-scene (fewer than 4096 triangles) go through the Woop kernels of
-``ops/cuda/intersect.py``; a scene with cluster tables goes through the
-cluster kernels of ``ops/cuda/cluster.py`` (nearest hit, any hit,
-transmittance). Each is a CUDA kernel on the card and its plain PyTorch
-version on the CPU. Spheres are plain tensor code. Acceptance rules mirror
-the reference:
+scene (fewer than 4096 triangles) go through the dense kernels of
+``ops/cuda/intersect.py``, in the form ``DENSE_KERNEL`` names; a scene with
+cluster tables goes through the cluster kernels of ``ops/cuda/cluster.py``
+(nearest hit, any hit, transmittance). Each is a CUDA kernel on the card
+and its plain PyTorch version on the CPU. Spheres are plain tensor code.
+The kernels are geometry-only and have no backward: the rays are detached
+where they enter one, as the JAX package stops their gradient at its
+Pallas kernels. Acceptance rules mirror the reference:
 
 - triangles: |dir.n| >= 1e-4 and t, u, v, 1-u-v > 0 (Triangle.hpp:39-49);
 - spheres: smallest strictly-positive root (Sphere.hpp:83-93);
@@ -28,8 +30,16 @@ from ..scene.data import SPHERE, TRIANGLE, SceneData
 from ..utils.vec import Vec3, where as vwhere
 from .cuda.cluster import (cluster_intersect, cluster_occluded,
                            cluster_transmittance)
-from .cuda.intersect import (CHUNK, F32_MAX, PARALLEL_EPS,
-                             pack_triangles_woop, tri_intersect, tri_occluded)
+from .cuda.intersect import (CHUNK, F32_MAX, PARALLEL_EPS, pack_triangles,
+                             pack_triangles_woop, tri_intersect,
+                             tri_intersect_mt, tri_occluded, tri_occluded_mt)
+
+# The form of the dense triangle test, the counterpart of the JAX package's
+# ops/pallas/intersect.py PALLAS_IMPL and read at call time: "woop" (the
+# prefactored rows, K1/K2) or "mt" (Moller-Trumbore, K3/K4, the arithmetic
+# the JAX package computes off the TPU). The two accept the same triangles
+# up to rounding on edge-grazing rays.
+DENSE_KERNEL = "woop"
 
 
 class HitCore(NamedTuple):
@@ -117,7 +127,19 @@ def _mask_rays(orig: Vec3, d: Vec3, mask):
 
 
 def _rays(orig: Vec3, d: Vec3):
-    return [c.contiguous() for c in (*orig, *d)]
+    """The ray columns as a kernel takes them, detached."""
+    return [c.detach().contiguous() for c in (*orig, *d)]
+
+
+def _dense(nearest: bool, scene: SceneData):
+    """(kernel wrapper, table) of the dense form ``DENSE_KERNEL`` names."""
+    if DENSE_KERNEL == "woop":
+        return (tri_intersect if nearest else tri_occluded), \
+            pack_triangles_woop(scene)
+    if DENSE_KERNEL == "mt":
+        return (tri_intersect_mt if nearest else tri_occluded_mt), \
+            pack_triangles(scene)
+    raise ValueError(f"DENSE_KERNEL {DENSE_KERNEL!r}: 'woop' or 'mt'")
 
 
 def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
@@ -130,8 +152,8 @@ def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
         t, idx, bu, bv = cluster_intersect(scene.clusters, *_rays(orig, d))
         best = HitCore(t=t, kind=torch.zeros_like(idx), idx=idx, bu=bu, bv=bv)
     elif scene.n_tris:
-        t, idx, bu, bv = tri_intersect(pack_triangles_woop(scene),
-                                       *_rays(orig, d))
+        kernel, table = _dense(True, scene)
+        t, idx, bu, bv = kernel(table, *_rays(orig, d))
         best = HitCore(t=t, kind=torch.zeros_like(idx), idx=idx, bu=bu, bv=bv)
     else:
         best = _empty_core(orig.x.shape[0], orig.x.device)
@@ -162,10 +184,10 @@ def occluded(scene: SceneData, orig: Vec3, d: Vec3, dist,
             ((core.t - dist).abs() >= PARALLEL_EPS)
     if scene.clusters is not None:
         blocked = cluster_occluded(scene.clusters, *_rays(orig, d),
-                                   dist.contiguous())
+                                   dist.detach().contiguous())
     else:
-        blocked = tri_occluded(pack_triangles_woop(scene), *_rays(orig, d),
-                               dist.contiguous())
+        kernel, table = _dense(False, scene)
+        blocked = kernel(table, *_rays(orig, d), dist.detach().contiguous())
     if scene.n_spheres:
         blocked = blocked | _sphere_occluded(scene, orig, d, dist)
     return blocked
@@ -189,7 +211,7 @@ def transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist,
 
     if scene.clusters is not None:
         trans = cluster_transmittance(scene.clusters, *_rays(orig, d),
-                                      dist.contiguous())
+                                      dist.detach().contiguous())
         if scene.n_spheres:
             trans = trans * _sphere_transmittance(scene, orig, d, dist)
         return trans

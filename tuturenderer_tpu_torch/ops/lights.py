@@ -30,7 +30,9 @@ class LightSample(NamedTuple):
 
 
 def _gather_vec3(v: Vec3, idx) -> Vec3:
-    return Vec3(v.x[idx], v.y[idx], v.z[idx])
+    """Per-lane rows of a per-light table; ``index_select`` for its cheap
+    backward (``materials.gather_material``)."""
+    return Vec3(*(torch.index_select(c, 0, idx) for c in v))
 
 
 def sample_light(scene: SceneData, r_pick, r0, r1,

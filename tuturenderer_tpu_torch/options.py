@@ -2,10 +2,9 @@
 ``tuturenderer_tpu/options.py`` so one options object means the same render
 in both packages. The fields are plain Python values.
 
-This package implements the unidirectional MIS path tracer without
-compaction; ``integrators/path.py`` raises ``NotImplementedError`` for the
-fields it does not serve yet (``mis=False``, ``compaction``,
-``alpha_shadows``, ``differentiable``).
+This package implements the unidirectional path tracer (MIS or NEE-only,
+``alpha_shadows``, ``differentiable``) without compaction;
+``integrators/path.py`` raises ``NotImplementedError`` for ``compaction``.
 """
 from __future__ import annotations
 
