@@ -8,25 +8,35 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``,
-   ``cluster_walk.cu`` and ``proto_visit.cu``, one process each, started
-   together;
+   ``bvh_walk.cu``, ``cluster_walk.cu`` and ``proto_visit.cu``, one process
+   each, started together, with each kernel's registers, stack frame and
+   spills;
 3. each dense intersection kernel, in the Woop form (K1, K2) and the
    Moller-Trumbore form (K3, K4), against its plain PyTorch version on the
    card: simple_box's 12 triangles at 1,048,576 rays, a 4095-triangle soup
    at 65,536 rays, rays aimed at shared edges and vertices, and shadow
    distances at 0.5x, 1x, 2x and within 1e-4 of the hit distance; with the
-   device time of each, from the profiler's CUDA trace;
+   device time of each (``utils/timing.py``: CUDA events around
+   back-to-back calls, the stream held while the host enqueues them);
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
    on the card, with the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
    (``tests/data/torch_simple_box_jax_ref.npy``) against that image;
-6. each cluster kernel (K5 nearest, K6 any hit, K7 transmittance) against
-   its plain version: sphere_showcase (100,356 triangles) at 65,536 camera
-   and random bounce rays, terrain (1,048,354 triangles) at 16,384, and a
-   sphere_showcase bounce wavefront of 262,144 rays taken from a render;
+6. each cluster kernel (K5 nearest and K6 any hit, the BVH walk of
+   ``bvh_walk.cu``; K7 transmittance) and the yardstick (the per-ray walk
+   over whole clusters of ``cluster_walk.cu`` for the nearest and any hit)
+   against the plain versions: sphere_showcase (100,356 triangles) at
+   65,536 camera and random bounce rays, terrain (1,048,354 triangles) at
+   16,384, and the bounce wavefronts of 262,144 rays taken from a 1-spp
+   render of each (terrain's held to the plain versions on every 4th ray);
    the same shadow distances, and for K7 a table whose alphas are drawn
-   from {0.3, 0.85, 1.0}; with each kernel's device time at the bounce
-   wavefront, its ray/triangle tests per ray and its bound;
+   from {0.3, 0.85, 1.0}; the BVH build seconds; at each wavefront, the
+   device time of K5/K6 and the yardstick in turns (new, old, old, new),
+   ray/triangle tests and node visits per ray and the bound, K5/K6 on each
+   8,192-ray slice of the wavefront alone, and K7's device time and bound
+   at the showcase wavefront; there, K5/K6, the yardstick and K7 also under
+   the profiler's CUDA trace beside the event timer, with the kernel
+   records the trace kept;
 7. the mesh-scale slice: ``render(sphere_showcase(512, 512),
    RenderOptions(spp=16))``, ``terrain(512, 512, nx=724, nz=724)`` at 4 spp
    and the translucent showcase (the sphere at alpha 0.5) at 256^2 x 4 spp
@@ -48,7 +58,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``tests/data/make_torch_grad_refs.py``);
 13. the visit-walk probe (K8): ``tools/proto_visit.py``'s ``main`` (its two
     scenarios at 1,024 clusters and 64 tiles), then each scenario, and one
-    with dead lanes, against the plain version, with its device time.
+    with dead lanes, against the plain version, with the device time of
+    its launch alone and of ``run`` with its synchronising input check.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -70,10 +81,11 @@ import torch
 REF_IMAGE = "tests/data/torch_simple_box_jax_ref.npy"
 REF_SIZE, REF_SPP, REF_SEED = (24, 20), 4, 3   # how the reference was made
 DENSE_SRC = "tuturenderer_tpu_torch/csrc/dense_intersect.cu"
+BVH_SRC = "tuturenderer_tpu_torch/csrc/bvh_walk.cu"
 CLUSTER_SRC = "tuturenderer_tpu_torch/csrc/cluster_walk.cu"
 SOURCES = {"nearest": DENSE_SRC, "anyhit": DENSE_SRC,
            "mt_nearest": DENSE_SRC, "mt_anyhit": DENSE_SRC,
-           "cluster_nearest": CLUSTER_SRC, "cluster_anyhit": CLUSTER_SRC,
+           "cluster_nearest": BVH_SRC, "cluster_anyhit": BVH_SRC,
            "cluster_transmit": CLUSTER_SRC,
            "proto_visit": "tuturenderer_tpu_torch/csrc/proto_visit.cu"}
 REPLACES = {"nearest": "tuturenderer_tpu/ops/pallas/intersect.py:164",
@@ -95,6 +107,7 @@ KERNEL_NAMES = {"nearest": "woop_nearest", "anyhit": "woop_anyhit",
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 FLOP_PER_TEST = 30      # one Woop ray/triangle test: ~30 fp32 operations
+FLOP_PER_NODE = 40      # one BVH node visit: two slab tests of ~20
 FLOP_PER_MT_TEST = 55   # one Moller-Trumbore test (ops/pallas/intersect.py:146)
 FLOP_PER_PLANE = 12     # one K8 plane test: 6 mul, 5 add, 1 div
 SHADOW_DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
@@ -119,24 +132,6 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of one call: the device time of every kernel the
-    call launches, from the profiler's CUDA trace (host overhead left out;
-    the kernels are far shorter than a launch from Python)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    if us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return us / reps / 1e3
-
-
 def wall_ms(fn, reps: int = 20) -> float:
     """Median of CUDA-event times around single calls, host launch
     overhead included."""
@@ -150,6 +145,26 @@ def wall_ms(fn, reps: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def profiler_ms(fn, kernel: str, reps: int = 20, warm: int = 3):
+    """(mean ms per kernel record, records kept, records expected) of the
+    kernels whose name holds ``kernel``, from the profiler's CUDA trace
+    around ``reps`` calls that launch one such kernel each, read beside
+    ``utils/timing.py``'s. The mean per record holds when the trace drops
+    records; a sum over the records divided by the calls would not."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if kernel in e.key]
+    kept = sum(e.count for e in ev)
+    us = sum(e.self_device_time_total for e in ev)
+    return us / max(kept, 1) / 1e3, kept, reps
 
 
 def random_unit(n: int, gen: torch.Generator, device) -> torch.Tensor:
@@ -198,6 +213,7 @@ def dense_form(form: str) -> dict:
 def compare_kernels(name: str, form: str, scene, o, d, report: dict):
     """Kernel vs plain on one ray set, nearest hit and any hit, in one
     dense form; returns the kernel and plain device times (ms)."""
+    from tuturenderer_tpu_torch.utils.timing import device_ms
     f = dense_form(form)
     k_near, k_occ = f["keys"]
     table = f["pack"](scene)
@@ -252,7 +268,10 @@ def compare_kernels(name: str, form: str, scene, o, d, report: dict):
              k_near + "_plain": lambda: f["near_plain"](table, *rays),
              k_occ: lambda: f["occ"](table, *rays, dist),
              k_occ + "_plain": lambda: f["occ_plain"](table, *rays, dist)}
-    ms = {k: device_ms(fn) for k, fn in calls.items()}
+    # the plain versions launch thousands of ops per call, more than the
+    # launch queue holds behind a spin: they run unheld (device-bound)
+    ms = {k: device_ms(fn, hold_ms=0 if k.endswith("_plain") else 50.0)
+          for k, fn in calls.items()}
     wall = {k: wall_ms(fn) for k, fn in calls.items()}
     for k in (k_near, k_occ):
         log(f"  {name}: {k} device ms kernel={ms[k]:.4f} "
@@ -278,7 +297,7 @@ def phase_device():
 def phase_build():
     log("== phase 2: build")
     from tuturenderer_tpu_torch.ops.cuda import build
-    names = ("dense_intersect", "cluster_walk", "proto_visit")
+    names = ("dense_intersect", "bvh_walk", "cluster_walk", "proto_visit")
     t0 = time.perf_counter()
     build.load_all(names)
     secs = time.perf_counter() - t0
@@ -345,15 +364,16 @@ def phase_kernels(dev):
 
 
 def bound(name: str, n_bytes: float, tests: float,
-          flop_per_test: int = FLOP_PER_TEST):
+          flop_per_test: int = FLOP_PER_TEST, nodes: float = 0.0):
     """(bound ms, what bounds it): the larger of the bytes over the HBM
-    rate and the tests' fp32 operations over the fp32 peak."""
+    rate and the fp32 operations of the tests (and BVH node visits) over
+    the fp32 peak."""
     byte_ms = n_bytes / PEAK_BYTES * 1e3
-    op_ms = tests * flop_per_test / PEAK_FP32 * 1e3
+    op_ms = (tests * flop_per_test + nodes * FLOP_PER_NODE) / PEAK_FP32 * 1e3
     by = "bytes" if byte_ms >= op_ms else "operations"
     log(f"  {name} bound: {n_bytes / 1e6:.2f} MB -> {byte_ms:.5f} ms, "
-        f"{tests:.4g} tests x {flop_per_test} flop -> {op_ms:.5f} ms; "
-        f"bound by {by}")
+        f"{tests:.4g} tests x {flop_per_test} flop + {nodes:.4g} node "
+        f"visits x {FLOP_PER_NODE} -> {op_ms:.5f} ms; bound by {by}")
     return max(byte_ms, op_ms), by
 
 
@@ -516,56 +536,28 @@ def alpha_table(clusters, dev):
     return dataclasses.replace(clusters, woop=woop)
 
 
-def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
-                            shadow=None, dists=SHADOW_DISTS) -> dict:
-    """K5/K6/K7 against their plain versions on one ray set: t bit-equal,
-    idx equal wherever t is unique, bu/bv equal wherever idx is, every K6
-    mask equal, K7 within rtol 1e-5 / atol 1e-6. ``shadow`` (6 columns +
-    dist) replaces the K6/K7 rays and distances when given. Returns the
-    max abs error per kernel."""
-    from tuturenderer_tpu_torch.ops.cuda import cluster as C
-    tk, ik, uk, vk = C.cluster_intersect(clusters, *rays)
-    tp, ip, up, vp = C.cluster_intersect_plain(clusters, *rays)
+def check_nearest(name: str, got, want):
+    """A nearest-hit kernel's (t, idx, bu, bv) against the plain version's:
+    t bit-equal, bu/bv equal wherever idx is (with t bit-equal, a differing
+    idx is a triangle at the same t: a tie). Returns the number of idx
+    differences."""
+    tk, ik, uk, vk = got
+    tp, ip, up, vp = want
     torch.cuda.synchronize()
-    hit = ip >= 0
-    t_eq = bool(((tk == tp) | (torch.isnan(tk) & torch.isnan(tp))).all())
-    # with t bit-equal, a differing idx is a triangle at the same t: a tie
-    idx_diff = int((ik != ip).sum())
+    t_eq = bool((tk == tp).all())
     same = ik == ip
     uv_err = max((uk - up)[same].abs().max().item(),
                  (vk - vp)[same].abs().max().item()) if same.any() else 0.0
-    log(f"  {name}: K5 rays={rays[0].shape[0]} hit={hit.float().mean():.4f}"
-        f" t bit-equal={t_eq} idx differs (exact t ties)={idx_diff} "
+    idx_diff = int((~same).sum())
+    log(f"  {name}: rays={tp.shape[0]} hit={(ip >= 0).float().mean():.4f} "
+        f"t bit-equal={t_eq} idx differs (exact t ties)={idx_diff} "
         f"max|du|,|dv| where idx equal={uv_err:.3g}")
     if not t_eq or uv_err != 0.0:
-        raise AssertionError(f"{name}: K5 disagrees with its plain version")
-    errs = {"cluster_nearest": 0.0, "cluster_anyhit": 0.0,
-            "cluster_transmit": 0.0}
-    if shadow is None:
-        t_ref = torch.where(hit, tp, torch.full_like(tp, 10.0))
-        sets = [(f"t*{f}{off:+g}", rays, (t_ref * f + off).contiguous())
-                for f, off in dists]
-    else:
-        sets = [("wavefront dist", shadow[:6], shadow[6])]
-    for label, r6, dist in sets:
-        bk = C.cluster_occluded(clusters, *r6, dist)
-        bp = C.cluster_occluded_plain(clusters, *r6, dist)
-        xk = C.cluster_transmittance(alpha_cl, *r6, dist)
-        xp = C.cluster_transmittance_plain(alpha_cl, *r6, dist)
-        n_diff = int((bk != bp).sum())
-        x_err = (xk - xp).abs().max().item()
-        log(f"  {name}: dist={label} K6 blocked={bp.float().mean():.4f} "
-            f"disagree={n_diff}; K7 mean={xp.mean():.4f} max|err|="
-            f"{x_err:.3g}")
-        if n_diff:
-            raise AssertionError(f"{name}: K6 disagrees on {n_diff} rays")
-        torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
-        errs["cluster_anyhit"] = max(errs["cluster_anyhit"], float(n_diff))
-        errs["cluster_transmit"] = max(errs["cluster_transmit"], x_err)
-    return errs
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return idx_diff
 
 
-def capture_wavefront(scene, cam, dev):
+def capture_wavefront(scene, cam):
     """The inputs of the depth-1 nearest-hit and shadow calls of a 1-spp
     render: a bounce wavefront as the main path gives it to the kernels
     (dead lanes included, masked as the path masks them)."""
@@ -591,11 +583,168 @@ def capture_wavefront(scene, cam, dev):
     return calls["near"][1], calls["occ"][1]
 
 
+def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
+                            shadow=None, dists=SHADOW_DISTS,
+                            step: int = 1) -> dict:
+    """K5/K6 (the BVH walk), K7 and the yardstick walk over whole clusters
+    against the plain versions on one ray set: t bit-equal, bu/bv equal
+    wherever idx is, every any-hit mask equal, K7 within rtol 1e-5 / atol
+    1e-6. ``shadow`` (6 columns + dist) replaces the any-hit and K7 rays
+    and distances when given; K7 is skipped when ``alpha_cl`` is None. The
+    kernels trace every ray, the plain versions every ``step``-th, and the
+    two are compared there. Returns the max abs error per kernel."""
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    sub = lambda cs: [c[::step].contiguous() for c in cs]
+    want = C.cluster_intersect_plain(clusters, *sub(rays))
+    for label, fn in (("K5", C.cluster_intersect),
+                      ("yardstick nearest", C.cluster_walk_intersect)):
+        got = [g[::step] for g in fn(clusters, *rays)]
+        check_nearest(f"{name} {label}", got, want)
+    errs = {"cluster_nearest": 0.0, "cluster_anyhit": 0.0,
+            "cluster_transmit": 0.0}
+    if shadow is None:
+        if step != 1:
+            raise ValueError("distances from the hit need every ray")
+        t_ref = torch.where(want[1] >= 0, want[0],
+                            torch.full_like(want[0], 10.0))
+        sets = [(f"t*{f}{off:+g}", rays, (t_ref * f + off).contiguous())
+                for f, off in dists]
+    else:
+        sets = [("wavefront dist", shadow[:6], shadow[6])]
+    for label, r6, dist in sets:
+        sub_dist = dist[::step].contiguous()
+        bp = C.cluster_occluded_plain(clusters, *sub(r6), sub_dist)
+        bk = C.cluster_occluded(clusters, *r6, dist)[::step]
+        bw = C.cluster_walk_occluded(clusters, *r6, dist)[::step]
+        n_diff = int((bk != bp).sum())
+        w_diff = int((bw != bp).sum())
+        msg = (f"  {name}: dist={label} K6 blocked={bp.float().mean():.4f} "
+               f"disagree={n_diff}, yardstick disagree={w_diff}")
+        if alpha_cl is not None:
+            xk = C.cluster_transmittance(alpha_cl, *r6, dist)[::step]
+            xp = C.cluster_transmittance_plain(alpha_cl, *sub(r6), sub_dist)
+            x_err = (xk - xp).abs().max().item()
+            msg += f"; K7 mean={xp.mean():.4f} max|err|={x_err:.3g}"
+            torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+            errs["cluster_transmit"] = max(errs["cluster_transmit"], x_err)
+        log(msg)
+        if n_diff or w_diff:
+            raise AssertionError(f"{name}: any hit disagrees on {n_diff} "
+                                 f"(BVH) / {w_diff} (yardstick) rays")
+    return errs
+
+
+def log_tables(title: str, scene, build_s: float):
+    """Log a cluster scene's table sizes and the seconds its trees take to
+    build on the host (rebuilt here from the tables, timed alone)."""
+    from tuturenderer_tpu_torch.ops.cluster import (BVH_LEAF, build_bvh,
+                                                    build_tree)
+    cl = scene.clusters
+    host = lambda a: a.cpu().numpy()
+    aabb, woop, tri_idx = host(cl.aabb), host(cl.woop), host(cl.tri_idx)
+    t0 = time.perf_counter()
+    _, link = build_tree(aabb)
+    t1 = time.perf_counter()
+    _, _, _, depth = build_bvh(aabb, woop, tri_idx, link)
+    t2 = time.perf_counter()
+    log(f"{title}: {scene.n_tris} triangles, "
+        f"{int((cl.tri_idx[:, 0] >= 0).sum())} clusters, scene built in "
+        f"{build_s:.2f} s; cluster tree {cl.node_box.shape[0]} nodes built "
+        f"in {t1 - t0:.2f} s; BVH {cl.bvh_nodes.shape[0]} nodes of depth "
+        f"{depth}, leaves of at most {BVH_LEAF} rows, built in "
+        f"{t2 - t1:.2f} s")
+
+
+def time_walks(name: str, cl, near, occ) -> dict:
+    """K5/K6 (the BVH walk) and the yardstick walk over whole clusters in
+    turns (new, old, old, new) on one wavefront: device ms of each, tests
+    and node visits per ray, and the bound of each."""
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    n = near[0].shape[0]
+    size = lambda ts: sum(a.numel() * a.element_size() for a in ts)
+    new_bytes = size((cl.bvh_nodes, cl.bvh_rows, cl.bvh_virt, cl.tri_idx))
+    old_bytes = size((cl.woop, cl.tri_idx, cl.node_box, cl.node_link))
+    out = {}
+    for k, new, old, args, ray_bytes in (
+            ("cluster_nearest", C.cluster_intersect, C.cluster_walk_intersect,
+             near, 40),
+            ("cluster_anyhit", C.cluster_occluded, C.cluster_walk_occluded,
+             occ, 32)):
+        tests = torch.zeros(1, dtype=torch.int64, device=near[0].device)
+        nodes, old_tests = torch.zeros_like(tests), torch.zeros_like(tests)
+        new(cl, *args, test_count=tests, node_count=nodes)
+        old(cl, *args, test_count=old_tests)
+        tests, nodes, old_tests = (float(c.item()) for c in
+                                   (tests, nodes, old_tests))
+        turns = [device_ms(lambda f=f: f(cl, *args))
+                 for f in (new, old, old, new)]
+        ms, prev = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        log(f"  {k} {name}: {n} rays: device ms BVH walk {turns[0]:.4f} "
+            f"{turns[3]:.4f} (mean {ms:.4f}), yardstick {turns[1]:.4f} "
+            f"{turns[2]:.4f} (mean {prev:.4f}), {prev / ms:.2f}x; tests/ray "
+            f"{tests / n:.2f}, node visits/ray {nodes / n:.2f}; yardstick "
+            f"tests/ray {old_tests / n:.2f}")
+        b_ms, b_by = bound(f"{k} {name}", n * ray_bytes + new_bytes, tests,
+                           nodes=nodes)
+        old_ms, _ = bound(f"{k} {name} yardstick, its tests alone",
+                          n * ray_bytes + old_bytes, old_tests)
+        out[k] = {"ms": ms, "prev_ms": prev, "bound_ms": b_ms,
+                  "bound_by": b_by, "prev_bound_ms": old_ms,
+                  "tests_per_ray": tests / n, "nodes_per_ray": nodes / n}
+    slices(name, cl, near, occ)
+    return out
+
+
+def slices(name: str, cl, near, occ, size: int = 8192):
+    """K5/K6's device ms on each ``size``-ray slice of a wavefront alone
+    (64 blocks of 128 rays: less than one wave on the card, so a slice
+    takes about as long as its slowest warp) against the whole launch: the
+    long warps' tail, apart from throughput."""
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    for k, fn, args in (("cluster_nearest", C.cluster_intersect, near),
+                        ("cluster_anyhit", C.cluster_occluded, occ)):
+        ms = [device_ms(lambda p=[c[lo:lo + size].contiguous() for c in args]:
+                        fn(cl, *p), reps=5, warm=1, hold_ms=5.0)
+              for lo in range(0, args[0].shape[0], size)]
+        whole = device_ms(lambda: fn(cl, *args))
+        log(f"  {k} {name}: whole launch {whole:.4f} ms; each {size}-ray "
+            f"slice alone, in ray order: {' '.join(f'{m:.4f}' for m in ms)}"
+            f" (max {max(ms):.4f} = {max(ms) / whole:.2f} of the whole)")
+
+
+def compare_timers(cl, alpha_cl, near, occ):
+    """Each cluster kernel at the showcase wavefront between CUDA events
+    (``utils/timing.py``) and under the profiler's CUDA trace, in turns
+    (events, profiler, profiler, events), with the kernel records the trace
+    kept. The any-hit wrappers' ``hit != 0`` is in the event time only."""
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    for label, kernel, call in (
+            ("K5", "bvh_walk_kernel", lambda: C.cluster_intersect(cl, *near)),
+            ("K6", "bvh_walk_kernel", lambda: C.cluster_occluded(cl, *occ)),
+            ("yardstick nearest", "cluster_walk_kernel",
+             lambda: C.cluster_walk_intersect(cl, *near)),
+            ("yardstick any hit", "cluster_walk_kernel",
+             lambda: C.cluster_walk_occluded(cl, *occ)),
+            ("K7", "cluster_walk_kernel",
+             lambda: C.cluster_transmittance(alpha_cl, *occ))):
+        ev = [device_ms(call)]
+        prof = [profiler_ms(call, kernel) for _ in range(2)]
+        ev.append(device_ms(call))
+        log(f"  timers, {label} at the showcase wavefront: events "
+            f"{ev[0]:.4f} {ev[1]:.4f} ms; profiler " +
+            " ".join(f"{ms:.4f} ms ({kept} of {want} records)"
+                     for ms, kept, want in prof))
+
+
 def phase_cluster_kernels(dev):
     log("== phase 6: cluster kernels vs plain on the card")
     from tuturenderer_tpu_torch.camera import primary_ray
     from tuturenderer_tpu_torch.models.scenes import sphere_showcase, terrain
     from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.utils.timing import device_ms
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {}
 
@@ -618,59 +767,57 @@ def phase_cluster_kernels(dev):
 
     t0 = time.perf_counter()
     scene, cam = sphere_showcase(512, 512, device=dev)
-    log(f"sphere_showcase(512, 512): {scene.n_tris} triangles, "
-        f"{int((scene.clusters.tri_idx[:, 0] >= 0).sum())} clusters, "
-        f"{scene.clusters.node_box.shape[0]} tree nodes, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log_tables("sphere_showcase(512, 512)", scene, time.perf_counter() - t0)
     alpha_cl = alpha_table(scene.clusters, dev)
     merge(compare_cluster_kernels("sphere_showcase", scene.clusters,
                                   alpha_cl, ray_set(scene, cam, 65536)))
 
-    near, occ = capture_wavefront(scene, cam, dev)
+    near, occ = capture_wavefront(scene, cam)
     merge(compare_cluster_kernels("sphere_showcase wavefront",
                                   scene.clusters, alpha_cl, near,
                                   shadow=occ))
 
-    # device time, tests per ray and bound at the main path's shapes
+    # device time, tests and node visits per ray and bound at the main
+    # path's shapes: K5/K6 against the yardstick, then K7 and the plain
+    # versions
     cl = scene.clusters
     n = near[0].shape[0]
+    stats = time_walks("showcase wavefront", cl, near, occ)
+    plain = {"cluster_nearest": (C.cluster_intersect_plain, cl, near),
+             "cluster_anyhit": (C.cluster_occluded_plain, cl, occ),
+             "cluster_transmit": (C.cluster_transmittance_plain, alpha_cl,
+                                  occ)}
+    for k, (fn, table, args) in plain.items():
+        stats.setdefault(k, {})["plain_ms"] = device_ms(
+            lambda: fn(table, *args), reps=2, warm=1, hold_ms=0)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    C.cluster_transmittance(alpha_cl, *occ, test_count=count)
+    tests = float(count.item())
+    ms = device_ms(lambda: C.cluster_transmittance(alpha_cl, *occ))
     tbytes = sum(a.numel() * a.element_size() for a in
                  (cl.woop, cl.tri_idx, cl.node_box, cl.node_link))
-    calls = {"cluster_nearest": (C.cluster_intersect, cl, near, 40),
-             "cluster_anyhit": (C.cluster_occluded, cl, occ, 32),
-             "cluster_transmit": (C.cluster_transmittance, alpha_cl, occ,
-                                  32)}
-    plain = {"cluster_nearest": C.cluster_intersect_plain,
-             "cluster_anyhit": C.cluster_occluded_plain,
-             "cluster_transmit": C.cluster_transmittance_plain}
-    stats = {}
-    for k, (fn, table, args, ray_bytes) in calls.items():
-        count = torch.zeros(1, dtype=torch.int64, device=dev)
-        fn(table, *args, test_count=count)
-        tests = float(count.item())
-        ms = device_ms(lambda: fn(table, *args))
-        plain_ms = device_ms(lambda: plain[k](table, *args), reps=2, warm=1)
-        log(f"  {k}: {n} rays of a bounce wavefront: device ms kernel="
-            f"{ms:.4f} plain={plain_ms:.4f}; tests/ray={tests / n:.2f}")
-        b_ms, b_by = bound(k, n * ray_bytes + tbytes, tests)
-        stats[k] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "tests_per_ray": tests / n}
+    b_ms, b_by = bound("cluster_transmit", n * 32 + tbytes, tests)
+    stats["cluster_transmit"].update(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                                     tests_per_ray=tests / n)
+    for k, st in stats.items():
+        log(f"  {k}: {n} rays of the showcase wavefront: device ms kernel="
+            f"{st['ms']:.4f} plain={st['plain_ms']:.4f}")
+    compare_timers(cl, alpha_cl, near, occ)
     del scene, cam, alpha_cl, near, occ
 
     t0 = time.perf_counter()
     scene, cam = terrain(512, 512, nx=724, nz=724, device=dev)
-    log(f"terrain(512, 512, nx=724, nz=724): {scene.n_tris} triangles, "
-        f"{int((scene.clusters.tri_idx[:, 0] >= 0).sum())} clusters, "
-        f"{scene.clusters.node_box.shape[0]} tree nodes, built in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log_tables("terrain(512, 512, nx=724, nz=724)", scene,
+               time.perf_counter() - t0)
     rays = ray_set(scene, cam, 16384)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    C.cluster_intersect(scene.clusters, *rays, test_count=count)
-    log(f"  terrain: K5 tests/ray={count.item() / 16384:.2f} at 16,384 "
-        f"camera and random rays")
     merge(compare_cluster_kernels("terrain", scene.clusters,
                                   alpha_table(scene.clusters, dev), rays))
-    return errs, stats
+    near, occ = capture_wavefront(scene, cam)
+    merge(compare_cluster_kernels("terrain wavefront", scene.clusters, None,
+                                  near, shadow=occ, step=4))
+    terrain_stats = time_walks("terrain wavefront", scene.clusters, near,
+                               occ)
+    return errs, stats, terrain_stats
 
 
 def timed_render(scene, cam, opts, dev):
@@ -1017,6 +1164,7 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
     log("== phase 13: the visit-walk probe (K8)")
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
     from tuturenderer_tpu_torch.tools import proto_visit as P
+    from tuturenderer_tpu_torch.utils.timing import device_ms
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     P.main(nc=nc, n_tiles=n_tiles, reps=reps, device=dev)
@@ -1049,8 +1197,17 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
     # time, plane tests and bound at the full walk, the probe's heavy case
     a = P.scenario("full", nc, n_tiles)
     args = P.tensors(a, dev)
-    ms = device_ms(lambda: P.run(*args, nc=nc), reps=10, warm=2)
-    plain_ms = device_ms(lambda: P.run_plain(*args, nc=nc), reps=2, warm=1)
+    # run checks its visit lists on the host, so each call synchronises:
+    # the kernel's time is its launch's alone, held; run's own time (hold 0)
+    # and the profiler's reading of run's kernels are logged beside it
+    ms = device_ms(lambda: P._launch(args[0], args[1], args[2:9], args[9],
+                                     nc, n_tiles), reps=10, warm=2)
+    run_ms = device_ms(lambda: P.run(*args, nc=nc), reps=10, warm=2,
+                       hold_ms=0)
+    prof_ms, kept, want = profiler_ms(lambda: P.run(*args, nc=nc),
+                                      "visit_walk", reps=10, warm=2)
+    plain_ms = device_ms(lambda: P.run_plain(*args, nc=nc), reps=2, warm=1,
+                         hold_ms=0)
     _, _, groups = P.walk_plain(*args, nc=nc)
     tests = float(groups.sum()) * P.G * P.CS * P.TILE
     n = n_tiles * P.TILE
@@ -1059,7 +1216,9 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
     n_bytes = n * (7 * 4 + 8) + n_tiles * nc * 8 + \
         torch.unique(walked).numel() * P.CS * 4 * 4
     log(f"  full walk: {n} rays x {nc} clusters: device ms kernel={ms:.4f} "
-        f"plain={plain_ms:.4f}; plane tests/ray={tests / n:.0f}")
+        f"plain={plain_ms:.4f}; run with its check {run_ms:.4f} (events, "
+        f"unheld), its kernel under the profiler {prof_ms:.4f} ({kept} of "
+        f"{want} records); plane tests/ray={tests / n:.0f}")
     b_ms, b_by = bound("K8 full walk", n_bytes, tests, FLOP_PER_PLANE)
     return launches, err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                            "bound_by": b_by}
@@ -1077,7 +1236,7 @@ def main() -> int:
     errs, times, bounds = phase_kernels(dev)
     launches = phase_slice(dev)
     phase_reference(dev)
-    cl_errs, cl_stats = phase_cluster_kernels(dev)
+    cl_errs, cl_stats, terrain_stats = phase_cluster_kernels(dev)
     runs = phase_mesh_slice(dev)
     phase_mesh_references(dev)
     train = phase_train_dense(dev)
@@ -1109,6 +1268,9 @@ def main() -> int:
         "plain_ms": cl_stats[k]["plain_ms"],
         "bound_ms": cl_stats[k]["bound_ms"],
         "bound_by": cl_stats[k]["bound_by"], "library_ms": None,
+        # K5/K6: the yardstick walk over whole clusters in the same call
+        **({"prev_ms": cl_stats[k]["prev_ms"]} if "prev_ms" in cl_stats[k]
+           else {}),
     } for k in ("cluster_nearest", "cluster_anyhit", "cluster_transmit")]
     kernels.append({
         "name": KERNEL_NAMES["proto_visit"], "route": "cuda",

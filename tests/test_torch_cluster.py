@@ -3,7 +3,9 @@ against the JAX package.
 
 On the CPU the port's ``cluster_intersect`` / ``cluster_occluded`` /
 ``cluster_transmittance`` run their plain PyTorch versions, which the CUDA
-kernels of ``csrc/cluster_walk.cu`` match on the card (chip_smoke.py).
+kernels of ``csrc/bvh_walk.cu`` (nearest and any hit) and
+``csrc/cluster_walk.cu`` (transmittance) match on the card
+(chip_smoke.py); tests/test_torch_bvh.py checks the BVH they walk.
 Tolerances:
 
 - tables: the port's cluster arrays bit-equal to JAX ``build_clusters``
@@ -373,7 +375,9 @@ def _good_args(soup):
 
 @pytest.mark.parametrize("bad", [
     "float64", "2-D", "non-contiguous", "lengths", "woop-length",
-    "tri_idx-dtype", "node_link-shape", "test_count-dtype"])
+    "tri_idx-dtype", "node_link-shape", "test_count-dtype",
+    "bvh_rows-length", "bvh_nodes-width", "bvh_virt-dtype",
+    "bvh_virt-length"])
 def test_wrappers_reject_bad_inputs(soup, bad):
     import dataclasses
     cl, rays = _good_args(soup)
@@ -392,6 +396,17 @@ def test_wrappers_reject_bad_inputs(soup, bad):
         cl = dataclasses.replace(cl, tri_idx=cl.tri_idx.long())
     elif bad == "node_link-shape":
         cl = dataclasses.replace(cl, node_link=cl.node_link[:, :1])
+    elif bad == "bvh_rows-length":
+        cl = dataclasses.replace(cl, bvh_rows=cl.bvh_rows[:-1])
+    elif bad == "bvh_nodes-width":
+        cl = dataclasses.replace(cl, bvh_nodes=cl.bvh_nodes[:, :12]
+                                 .contiguous())
+    elif bad == "bvh_virt-dtype":
+        cl = dataclasses.replace(cl, bvh_virt=cl.bvh_virt.long())
+    elif bad == "bvh_virt-length":
+        # rows and ids agree with each other, not with tri_idx's real rows
+        cl = dataclasses.replace(cl, bvh_rows=cl.bvh_rows[:-1],
+                                 bvh_virt=cl.bvh_virt[:-1])
     else:
         count = torch.zeros(1, dtype=torch.int32)
     dist = torch.ones(N_RAYS)

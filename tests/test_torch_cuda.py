@@ -7,9 +7,10 @@ on a machine that has only PyTorch:
 Tolerance: exact. The kernels are built with --fmad=false and compute the
 plain versions' float32 expressions in the same order (the dense kernels
 in both forms, Woop and Moller-Trumbore, and the visit-walk probe). The
-cluster kernels
-visit triangles in another order than their plain versions, so an exact t
-tie may keep another index (idx is compared where t is unique) and the
+cluster kernels (the BVH walk of the nearest and any hit, the
+transmittance walk and the yardstick walk over whole clusters) visit
+triangles in another order than their plain versions, so an exact t tie
+may keep another index (bu/bv are compared where idx is equal) and the
 transmittance product differs within rtol 1e-5 / atol 1e-6.
 """
 import dataclasses
@@ -103,47 +104,78 @@ def _mesh(dev, n_rays=8192):
         torch.cat([torch.stack(list(d), 1), db])
 
 
-def test_cluster_kernels_equal_plain_versions(dev):
-    scene, o, d = _mesh(dev)
-    cl = scene.clusters
-    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
-    before = dict(K.LAUNCHES)
-    t, idx, bu, bv = C.cluster_intersect(cl, *rays)
-    tp, ip, up, vp = C.cluster_intersect_plain(cl, *rays)
-    torch.testing.assert_close(t, tp, rtol=0, atol=0)
-    assert bool((ip >= 0).any())
-    same = idx == ip
-    assert same.float().mean().item() > 0.999
-    torch.testing.assert_close(bu[same], up[same], rtol=0, atol=0)
-    torch.testing.assert_close(bv[same], vp[same], rtol=0, atol=0)
+def _alpha_table(cl, dev):
+    """The clusters with every real row's alpha (slot 13) in {0.3, 0.85,
+    1.0}; the transmittance kernel reads alpha from ``woop``."""
     alpha = cl.woop.clone()
     rows = alpha.view(alpha.shape[0], -1)[:, :64 * 14].view(-1, 64, 14)
     rows[..., 13] = torch.tensor([0.3, 0.85, 1.0], device=dev)[
         torch.arange(rows.shape[1], device=dev) % 3]
-    cl_alpha = dataclasses.replace(cl, woop=alpha)
-    t_ref = torch.where(ip >= 0, tp, 10.0)
+    return dataclasses.replace(cl, woop=alpha)
+
+
+def _nearest_equal(got, want):
+    """t bit-equal; bu/bv bit-equal wherever idx is; idx equal but at exact
+    t ties."""
+    t, idx, bu, bv = got
+    tp, ip, up, vp = want
+    torch.testing.assert_close(t, tp, rtol=0, atol=0)
+    same = idx == ip
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(bu[same], up[same], rtol=0, atol=0)
+    torch.testing.assert_close(bv[same], vp[same], rtol=0, atol=0)
+
+
+def test_cluster_kernels_equal_plain_versions(dev):
+    """The BVH walk (K5/K6), the transmittance walk (K7) and the yardstick
+    walk over whole clusters against the plain versions."""
+    scene, o, d = _mesh(dev)
+    cl = scene.clusters
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    before = dict(K.LAUNCHES)
+    want = C.cluster_intersect_plain(cl, *rays)
+    assert bool((want[1] >= 0).any())
+    _nearest_equal(C.cluster_intersect(cl, *rays), want)
+    _nearest_equal(C.cluster_walk_intersect(cl, *rays), want)
+    cl_alpha = _alpha_table(cl, dev)
+    t_ref = torch.where(want[1] >= 0, want[0], 10.0)
     for scale, off in ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
                        (1.0, -2e-4)):
         dist = t_ref * scale + off
+        blocked = C.cluster_occluded_plain(cl, *rays, dist)
         torch.testing.assert_close(C.cluster_occluded(cl, *rays, dist),
-                                   C.cluster_occluded_plain(cl, *rays, dist))
+                                   blocked)
+        torch.testing.assert_close(C.cluster_walk_occluded(cl, *rays, dist),
+                                   blocked)
         torch.testing.assert_close(
             C.cluster_transmittance(cl_alpha, *rays, dist),
             C.cluster_transmittance_plain(cl_alpha, *rays, dist),
             rtol=1e-5, atol=1e-6)
-    assert K.LAUNCHES["cluster_nearest"] == before["cluster_nearest"] + 1
-    assert K.LAUNCHES["cluster_anyhit"] == before["cluster_anyhit"] + 5
-    assert K.LAUNCHES["cluster_transmit"] == before["cluster_transmit"] + 5
+    got = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    want_launches = dict.fromkeys(K.LAUNCHES, 0)
+    want_launches.update(cluster_nearest=1, walk_nearest=1,
+                         cluster_anyhit=5, walk_anyhit=5, cluster_transmit=5)
+    assert got == want_launches
 
 
 def test_cluster_test_count(dev):
     scene, o, d = _mesh(dev, n_rays=256)
     rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    C.cluster_intersect(scene.clusters, *rays, test_count=count)
     n = o.shape[0]
-    # the walk culls: fewer tests than the dense n x 4,236, at least one
-    assert 0 < int(count) < n * scene.n_tris
+    dense = n * scene.n_tris
+    for fn, args in ((C.cluster_intersect, rays),
+                     (C.cluster_occluded, rays + [torch.full_like(rays[0],
+                                                                  4.0)])):
+        tests = torch.zeros(1, dtype=torch.int64, device=dev)
+        nodes = torch.zeros_like(tests)
+        fn(scene.clusters, *args, test_count=tests, node_count=nodes)
+        # the walk culls: fewer tests and node visits than the dense
+        # n x 4,236 tests, at least one of each
+        assert 0 < int(tests) < dense
+        assert 0 < int(nodes) < dense
+    walk = torch.zeros(1, dtype=torch.int64, device=dev)
+    C.cluster_walk_intersect(scene.clusters, *rays, test_count=walk)
+    assert 0 < int(walk) < dense
 
 
 @pytest.mark.parametrize("opts,nearest,shadow", [
@@ -165,15 +197,24 @@ def test_mesh_render_goes_through_the_cluster_kernels(dev, opts, nearest,
 
 
 def test_cluster_wrapper_raises_on_a_wrong_length_table(dev):
+    """A table whose BVH rows (K5/K6) or Woop rows (K7, the yardstick) are
+    cut short raises before any launch."""
     scene, o, d = _mesh(dev, n_rays=64)
     rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
-    bad = dataclasses.replace(scene.clusters,
-                              woop=scene.clusters.woop[:-1].contiguous())
+    dist = torch.ones_like(rays[0])
+    cl = scene.clusters
+    short_rows = dataclasses.replace(
+        cl, bvh_rows=cl.bvh_rows[:-1].contiguous())
+    short_woop = dataclasses.replace(cl, woop=cl.woop[:-1].contiguous())
     before = dict(K.LAUNCHES)
     with pytest.raises(ValueError):
-        C.cluster_intersect(bad, *rays)
+        C.cluster_intersect(short_rows, *rays)
     with pytest.raises(ValueError):
-        C.cluster_transmittance(bad, *rays, torch.ones_like(rays[0]))
+        C.cluster_occluded(short_rows, *rays, dist)
+    with pytest.raises(ValueError):
+        C.cluster_transmittance(short_woop, *rays, dist)
+    with pytest.raises(ValueError):
+        C.cluster_walk_intersect(short_woop, *rays)
     assert K.LAUNCHES == before
 
 

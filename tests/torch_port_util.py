@@ -18,7 +18,10 @@
 - ``GRAD_CASES`` name the differentiable renders the port's gradients are
   held to, ``GRAD_REFS`` where each is stored (``make_torch_grad_refs.py``:
   the scene, camera, image and gradient leaves in one ``.npz``), and
-  ``jax_grad_case`` computes one with the JAX package.
+  ``jax_grad_case`` computes one with the JAX package;
+- ``bvh_walk`` walks the port's BVH (``Clusters.bvh_*``) one ray at a time
+  in float32 numpy, as ``csrc/bvh_walk.cu`` walks it, so the CPU tests
+  check the tree where the kernel cannot run.
 """
 from __future__ import annotations
 
@@ -219,4 +222,87 @@ def jax_grad_case(name: str) -> dict:
     out["image"] = np.asarray(img)
     for key, leaf in zip(GRAD_LEAVES, jax.tree.flatten(grads)[0]):
         out[f"grad.{key}"] = np.asarray(leaf)
+    return out
+
+
+def _slab(box, o, inv, bound):
+    """(entered, tmin) of a padded box (lo(3), hi(3)) in float32, the
+    kernel's slab test."""
+    t0 = (box[:3] - o) * inv
+    t1 = (box[3:] - o) * inv
+    tmin = np.minimum(t0, t1).max()
+    tmax = np.maximum(t0, t1).min()
+    return bool(tmin <= tmax and tmax >= 0.0 and tmin < bound), tmin
+
+
+def _woop_test(row, o, d):
+    """(t, u, v, accepted) of one 12-float Woop row in float32, in the
+    kernels' order of operations."""
+    f = np.float32
+    r1, c1, r2, c2, r3, c3 = row[0:3], row[3], row[4:7], row[7], row[8:11], \
+        row[11]
+    w_o = o[0] * r3[0] + o[1] * r3[1] + o[2] * r3[2] - c3
+    w_d = d[0] * r3[0] + d[1] * r3[1] + d[2] * r3[2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = f(1.0) / w_d
+        t = -w_o * inv
+        u = (o[0] * r1[0] + o[1] * r1[1] + o[2] * r1[2] - c1) + \
+            t * (d[0] * r1[0] + d[1] * r1[1] + d[2] * r1[2])
+        v = (o[0] * r2[0] + o[1] * r2[1] + o[2] * r2[2] - c2) + \
+            t * (d[0] * r2[0] + d[1] * r2[1] + d[2] * r2[2])
+        ok = abs(w_d) >= f(1e-4) and t > 0 and u > 0 and v > 0 and \
+            f(1.0) - u - v > 0
+    return t, u, v, bool(ok)
+
+
+def bvh_walk(nodes, rows, o, d, dist=None, leaf_bits: int = 4):
+    """Walk the BVH (``nodes [K, 16]`` f32, ``rows [R, 12]`` f32, numpy)
+    for each ray (``o``, ``d`` [N, 3] f32): nearer child first and pruned
+    by the best t for the nearest hit, or, with ``dist`` [N], the any hit
+    within dist with the endpoint guard. Returns (t, row, bu, bv, tested)
+    per ray for the nearest hit (row -1 on a miss; tested: the set of rows
+    the walk tested), or (blocked, tested) for the any hit."""
+    f = np.float32
+    boxes = nodes[:, :12]
+    links = nodes.view(np.int32)[:, 12:14]
+    # child boxes as lo(3), hi(3)
+    kid = [boxes[:, [0, 2, 8, 1, 3, 9]], boxes[:, [4, 6, 10, 5, 7, 11]]]
+    out = []
+    for i in range(len(o)):
+        oi, di = o[i].astype(f), d[i].astype(f)
+        inv = np.array([f(1.0) / (c if c != 0 else f(1e-30)) for c in di], f)
+        bound = f(3.4e38) if dist is None else f(dist[i])
+        t_best, best, bu, bv, blocked = f(3.4e38), -1, f(0), f(0), False
+        tested, stack, node = set(), [], 0
+        while node is not None and not blocked:
+            if node >= 0:
+                hits = [_slab(kid[c][node], oi, inv, bound) for c in (0, 1)]
+                a, b = (int(x) for x in links[node])
+                if hits[0][0] and hits[1][0]:
+                    near_a = dist is not None or hits[0][1] <= hits[1][1]
+                    stack.append(b if near_a else a)
+                    node = a if near_a else b
+                elif hits[0][0] or hits[1][0]:
+                    node = a if hits[0][0] else b
+                else:
+                    node = stack.pop() if stack else None
+                continue
+            code = -1 - node
+            first, count = code >> leaf_bits, code & ((1 << leaf_bits) - 1)
+            for r in range(first, first + count):
+                tested.add(r)
+                t, u, v, ok = _woop_test(rows[r], oi, di)
+                if not ok:
+                    continue
+                if dist is None and t < t_best:
+                    t_best, best, bu, bv = t, r, u, v
+                elif dist is not None and t < bound and \
+                        abs(t - bound) >= f(1e-4):
+                    blocked = True
+                    break
+            if dist is None:
+                bound = t_best
+            node = stack.pop() if stack else None
+        out.append((blocked, tested) if dist is not None else
+                   (t_best, best, bu, bv, tested))
     return out

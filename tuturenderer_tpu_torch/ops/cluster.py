@@ -13,15 +13,32 @@ built here is bit-equal to the JAX package's:
   ids, -1 in the padding;
 - C is padded to a multiple of ``C_ALIGN`` = 1024 with inverted boxes.
 
-On top, the port keeps a binary tree over the real clusters' boxes for the
-per-ray traversal of ``csrc/cluster_walk.cu``, built from ``aabb`` alone
-(so tables imported from the JAX package get it too): ``node_box [K, 8]``
-(lo(3), hi(3), 2 pad) and ``node_link [K, 2]`` int32, the two child node
-ids of an inner node, or ``(-1 - cluster, -1)`` for a leaf. Node 0 is the
-root. Each node box is padded outward by ``1e-5 * max(|lo|, |hi|) + 1e-4``
-per axis, the margin of the JAX visit lists (cluster.py:237-252): a ray's
-slab test then never culls a triangle hit inside the box by rounding, and
-flat clusters (a ground plane, flat terrain patches) keep a thickness.
+On top, the port keeps two trees, both built from the five JAX arrays (so
+tables imported from the JAX package get them too):
+
+- a binary tree over the real clusters' boxes, the per-ray walk of
+  ``csrc/cluster_walk.cu`` (the transmittance kernel): ``node_box [K, 8]``
+  (lo(3), hi(3), 2 pad) and ``node_link [K, 2]`` int32, the two child node
+  ids of an inner node, or ``(-1 - cluster, -1)`` for a leaf; node 0 is the
+  root;
+- a BVH with small leaves for ``csrc/bvh_walk.cu`` (nearest and any hit):
+  the cluster tree's inner nodes on top, and below each cluster a median
+  split of its real rows down to leaves of at most ``BVH_LEAF`` rows.
+  ``bvh_nodes [K', 16]`` float32, 64 bytes per inner node: both children's
+  boxes as ``a.lo.x a.hi.x a.lo.y a.hi.y | b.lo.x b.hi.x b.lo.y b.hi.y |
+  a.lo.z a.hi.z b.lo.z b.hi.z`` and, as int32 bits, ``link a, link b, 0,
+  0``; a link >= 0 is an inner node, a link < 0 a leaf of rows ``first ..
+  first + count`` with ``-1 - link = first << 4 | count``; node 0 is the
+  root. ``bvh_rows [R, 12]`` float32 holds the real rows' first 12 Woop
+  floats (r1 c1 | r2 c2 | r3' c3', 48 bytes) in leaf order, bit for bit,
+  and ``bvh_virt [R]`` int32 their virtual ids (cluster * 64 + slot).
+
+Every box is padded outward by ``1e-5 * max(|lo|, |hi|) + 1e-4`` per axis,
+the margin of the JAX visit lists (cluster.py:237-252): a ray's slab test
+then never culls a triangle hit inside the box by rounding, and flat
+clusters (a ground plane, flat terrain patches) keep a thickness. The BVH
+bounds each row by the triangle its float32 Woop rows describe (the rows
+inverted in float64), which is the triangle the kernels test.
 """
 from __future__ import annotations
 
@@ -35,11 +52,23 @@ from ..utils.device import DEFAULT_DEVICE, resolve
 CLUSTER_SIZE = 64
 WOOP_F = 14             # floats per triangle row: 12 + |n| + alpha
 C_ALIGN = 1024          # cluster count padding of the JAX layout
-TREE_STACK = 64         # traversal stack of the kernels (csrc kStack)
+TREE_STACK = 64         # traversal stack of csrc/cluster_walk.cu (kStack)
+BVH_LEAF = 4            # rows per BVH leaf at most
+BVH_STACK = 32          # traversal stack of csrc/bvh_walk.cu (kStack)
+NODE_F = 16             # floats per BVH node: 4 float4
+ROW_F = 12              # floats per BVH row: 3 float4
+LEAF_BITS = 4           # -1 - leaf link = first row << LEAF_BITS | count
 
 
 @dataclasses.dataclass(frozen=True)
 class Clusters:
+    """The cluster tables on one device. The BVH rows are copied from
+    ``woop`` when the tables are built: ``dataclasses.replace(clusters,
+    woop=...)`` leaves ``bvh_rows`` as it was (the transmittance kernel,
+    which reads alpha from ``woop``, is the only reader of a replaced
+    ``woop``). ``n_real``, the number of real rows in ``tri_idx``, is
+    counted on construction (not a field), so the kernels' wrappers can
+    hold ``bvh_virt`` to it without reading the device."""
     aabb: torch.Tensor       # [C, 8] f32: min(3), max(3), 2 pad
     woop: torch.Tensor       # [C, 8, 128] f32: CLUSTER_SIZE * WOOP_F + pad
     tri_idx: torch.Tensor    # [C, CLUSTER_SIZE] i32 original ids, -1 pad
@@ -47,6 +76,12 @@ class Clusters:
     scene_hi: torch.Tensor   # [3] f32
     node_box: torch.Tensor   # [K, 8] f32 padded lo(3), hi(3), 2 pad
     node_link: torch.Tensor  # [K, 2] i32 children, or (-1 - cluster, -1)
+    bvh_nodes: torch.Tensor  # [K', NODE_F] f32: child boxes, links (i32)
+    bvh_rows: torch.Tensor   # [R, ROW_F] f32 Woop rows in leaf order
+    bvh_virt: torch.Tensor   # [R] i32 virtual id of each row
+
+    def __post_init__(self):
+        object.__setattr__(self, "n_real", int((self.tri_idx >= 0).sum()))
 
 
 def woop_rows(verts: np.ndarray):
@@ -183,16 +218,196 @@ def build_tree(aabb: np.ndarray):
             np.asarray(links, np.int32).reshape(-1, 2))
 
 
+def real_woop_rows(woop: np.ndarray, tri_idx: np.ndarray):
+    """(rows [R, WOOP_F], virtual ids [R]) of the table's real rows in row
+    order (numpy)."""
+    c = tri_idx.shape[0]
+    rows = woop.reshape(c, -1)[:, :CLUSTER_SIZE * WOOP_F] \
+        .reshape(c * CLUSTER_SIZE, WOOP_F)
+    virt = np.nonzero(tri_idx.reshape(-1) >= 0)[0]
+    return rows[virt], virt
+
+
+def row_bounds(rows: np.ndarray):
+    """(lo, hi, ok) of the triangles that float32 Woop rows ``rows [R, >=
+    12]`` describe: lo, hi [R, 3] float64 and ok [R] bool. With M the rows
+    r1, r2, r3' and c the offsets c1, c2, c3', the corners solve
+    M p = c + (0, 0, 0), (1, 0, 0) and (0, 1, 0). Degenerate rows (all
+    zero: their tests always reject) have ok False and lo = hi = 0."""
+    m = rows[:, :12].astype(np.float64).reshape(-1, 3, 4)
+    mat, off = m[:, :, :3], m[:, :, 3]
+    ok = np.linalg.det(mat) != 0.0
+    inv = np.linalg.inv(np.where(ok[:, None, None], mat, np.eye(3)))
+    p0 = np.einsum('rij,rj->ri', inv, off)
+    corners = np.stack([p0, p0 + inv[:, :, 0], p0 + inv[:, :, 1]], axis=1)
+    corners[~ok] = 0.0
+    return corners.min(axis=1), corners.max(axis=1), ok
+
+
+def _seg_reduce(ufunc, vals: np.ndarray, starts: np.ndarray,
+                sizes: np.ndarray) -> np.ndarray:
+    """``ufunc`` over the rows of each segment [start, start + size) of
+    ``vals`` (every size >= 1)."""
+    idx = np.stack([starts, starts + sizes], axis=1).ravel()
+    return ufunc.reduceat(np.concatenate([vals, vals[:1]]), idx, axis=0)[::2]
+
+
+def _node_boxes(lo_a, hi_a, lo_b, hi_b) -> np.ndarray:
+    """[n, 12] float32 box floats of inner nodes from their two children's
+    bounds (float64 [n, 3] each), padded outward."""
+    (la, ha), (lb, hb) = _padded(lo_a, hi_a), _padded(lo_b, hi_b)
+    return np.stack([la[:, 0], ha[:, 0], la[:, 1], ha[:, 1],
+                     lb[:, 0], hb[:, 0], lb[:, 1], hb[:, 1],
+                     la[:, 2], ha[:, 2], lb[:, 2], hb[:, 2]], axis=1)
+
+
+def _split_clusters(lo, hi, c_start, c_size, first_id: int):
+    """Median splits of every cluster's rows down to leaves of at most
+    ``BVH_LEAF``, all clusters at once, level by level. ``lo``/``hi`` [R, 3] row bounds, rows grouped by cluster at
+    ``c_start``/``c_size``. Returns (order: leaf-order position -> row,
+    root link per cluster, the inner nodes' boxes [n, 12] and links [n, 2]
+    as one array per level, numbered from ``first_id`` level by level, the
+    number of levels)."""
+    cen = 0.5 * (lo + hi)
+    order = np.arange(len(lo))
+    root = np.empty(len(c_start), np.int64)
+    boxes, links = [], []
+    # segments: first position, size, parent node (-1: a cluster), slot
+    start, size = c_start, c_size
+    parent, slot = np.full(len(start), -1), np.zeros(len(start), np.int64)
+    n_nodes = first_id
+    while True:
+        split = size > BVH_LEAF
+        link = np.where(split, np.cumsum(split) - 1 + n_nodes,
+                        -1 - ((start << LEAF_BITS) | size))
+        if parent[0] < 0:
+            root[:] = link
+        else:
+            links[-1][parent - (n_nodes - len(links[-1])), slot] = link
+        start, size = start[split], size[split]
+        if not len(start):
+            return order, root, boxes, links, len(boxes)
+        # sort each splitting segment's rows by centroid on its longest axis
+        ext = _seg_reduce(np.maximum, hi[order], start, size) - \
+            _seg_reduce(np.minimum, lo[order], start, size)
+        axis = np.argmax(ext, axis=1)
+        which = np.repeat(np.arange(len(start)), size)
+        pos = np.arange(len(which)) + np.repeat(start - np.cumsum(size) + size,
+                                                size)
+        rows = order[pos]
+        order[pos] = rows[np.lexsort((cen[rows, axis[which]], which))]
+        mid = size // 2
+        kid_start = np.stack([start, start + mid], axis=1).ravel()
+        kid_size = np.stack([mid, size - mid], axis=1).ravel()
+        k_lo = _seg_reduce(np.minimum, lo[order], kid_start, kid_size)
+        k_hi = _seg_reduce(np.maximum, hi[order], kid_start, kid_size)
+        boxes.append(_node_boxes(k_lo[0::2], k_hi[0::2], k_lo[1::2],
+                                 k_hi[1::2]))
+        links.append(np.zeros((len(start), 2), np.int64))
+        ids = np.arange(n_nodes, n_nodes + len(start))
+        n_nodes += len(start)
+        start, size = kid_start, kid_size
+        parent, slot = np.repeat(ids, 2), np.tile(np.arange(2), len(ids))
+
+
+def _levels(node_link: np.ndarray) -> list:
+    """The node ids of a tree ``node_link [K, 2]`` (a link < 0 in column 0:
+    a leaf; node 0 the root), one array per level from the root down."""
+    levels, level = [], np.zeros(1, np.int64)
+    while len(level):
+        levels.append(level)
+        level = node_link[level[node_link[level, 0] >= 0]].ravel()
+    return levels
+
+
+def build_bvh(aabb: np.ndarray, woop: np.ndarray, tri_idx: np.ndarray,
+              node_link: np.ndarray):
+    """The BVH of the module docstring -> (bvh_nodes [K', 16] f32,
+    bvh_rows [R, 12] f32, bvh_virt [R] i32, depth in inner nodes, the most
+    a walk's stack holds).
+
+    Top levels: the inner nodes of the cluster tree ``node_link`` (from
+    ``build_tree``), in its depth-first order. Below each real cluster: its
+    real rows split at the median (``len // 2``) by centroid on the longest
+    axis of their bounds while more than ``BVH_LEAF`` remain. A cluster's box
+    is the union of its ``aabb`` row and its rows' bounds, an inner node's
+    the union of its children's. A degenerate row is bounded by a point at
+    its cluster's ``aabb`` minimum."""
+    rows, virt = real_woop_rows(woop, tri_idx)
+    if len(virt) >= 1 << (30 - LEAF_BITS):
+        raise ValueError(f"{len(virt)} rows exceed the leaf link's range")
+    cluster = virt // CLUSTER_SIZE
+    lo, hi, ok = row_bounds(rows)
+    lo[~ok] = hi[~ok] = aabb[cluster[~ok], :3]
+    c_ids, c_start, c_size = np.unique(cluster, return_index=True,
+                                       return_counts=True)
+    top_leaf = node_link[:, 0] < 0
+    if not np.array_equal(np.sort(-1 - node_link[top_leaf, 0]), c_ids):
+        raise ValueError("the cluster tree's leaves are not the clusters "
+                         "with real rows")
+    c_lo = np.minimum(_seg_reduce(np.minimum, lo, c_start, c_size),
+                      aabb[c_ids, :3])
+    c_hi = np.maximum(_seg_reduce(np.maximum, hi, c_start, c_size),
+                      aabb[c_ids, 3:6])
+
+    top = np.nonzero(~top_leaf)[0]
+    order, root, boxes, links, levels = _split_clusters(
+        lo, hi, c_start, c_size, len(top))
+
+    # the cluster tree level by level: a leaf takes its cluster's box and
+    # root link, an inner node (bottom-up) the union of its children's boxes
+    k_top = len(node_link)
+    t_lo, t_hi = np.zeros((k_top, 3)), np.zeros((k_top, 3))
+    t_link = np.zeros(k_top, np.int64)
+    t_link[top] = np.arange(len(top))
+    c_row = np.zeros(len(aabb), np.int64)
+    c_row[c_ids] = np.arange(len(c_ids))
+    leaf_k = np.nonzero(top_leaf)[0]
+    r = c_row[-1 - node_link[leaf_k, 0]]
+    t_lo[leaf_k], t_hi[leaf_k], t_link[leaf_k] = c_lo[r], c_hi[r], root[r]
+    depth = np.zeros(k_top, np.int64)
+    tree_levels = _levels(node_link)
+    for d, level in enumerate(tree_levels):
+        depth[level] = d
+    for level in tree_levels[::-1]:
+        k = level[node_link[level, 0] >= 0]
+        a, b = node_link[k, 0], node_link[k, 1]
+        t_lo[k] = np.minimum(t_lo[a], t_lo[b])
+        t_hi[k] = np.maximum(t_hi[a], t_hi[b])
+    if not len(top) and root[0] < 0:
+        # one cluster of at most ``BVH_LEAF`` rows: a root over it and an
+        # empty leaf (count 0)
+        top_boxes = _node_boxes(c_lo, c_hi, c_lo, c_hi)
+        top_links = np.array([[root[0], -1]])
+    else:
+        a, b = node_link[top, 0], node_link[top, 1]
+        top_boxes = _node_boxes(t_lo[a], t_hi[a], t_lo[b], t_hi[b])
+        top_links = np.stack([t_link[a], t_link[b]], axis=1)
+    nodes = np.zeros((len(top_boxes) + sum(len(x) for x in boxes), NODE_F),
+                     np.float32)
+    nodes[:, :12] = np.concatenate([top_boxes, *boxes])
+    nodes.view(np.int32)[:, 12:14] = np.concatenate([top_links, *links])
+    stack = max(int(depth[top_leaf].max()) + levels, 1)
+    if stack > BVH_STACK:
+        raise ValueError(f"BVH depth {stack} exceeds the traversal stack of "
+                         f"{BVH_STACK}")
+    return (nodes, np.ascontiguousarray(rows[order, :ROW_F]),
+            virt[order].astype(np.int32), stack)
+
+
 def clusters_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> Clusters:
     """``Clusters`` on ``device`` from the five JAX-layout arrays (keys
     ``aabb``, ``woop``, ``tri_idx``, ``scene_lo``, ``scene_hi``), with the
-    port's tree built from ``aabb``."""
+    port's cluster tree and BVH built from them."""
     device = resolve(device)
     aabb = np.asarray(arrays["aabb"], np.float32)
+    woop = np.asarray(arrays["woop"], np.float32)
+    tri_idx = np.asarray(arrays["tri_idx"], np.int32)
     node_box, node_link = build_tree(aabb)
+    nodes, rows, virt, _ = build_bvh(aabb, woop, tri_idx, node_link)
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
-    return Clusters(aabb=t(aabb), woop=t(arrays["woop"]),
-                    tri_idx=t(arrays["tri_idx"]),
+    return Clusters(aabb=t(aabb), woop=t(woop), tri_idx=t(tri_idx),
                     scene_lo=t(arrays["scene_lo"]),
                     scene_hi=t(arrays["scene_hi"]),
-                    node_box=t(node_box), node_link=t(node_link))
+                    node_box=t(node_box), node_link=t(node_link),
+                    bvh_nodes=t(nodes), bvh_rows=t(rows), bvh_virt=t(virt))

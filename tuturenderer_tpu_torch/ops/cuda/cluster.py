@@ -6,10 +6,17 @@ distance) and ``cluster_transmittance`` (product of ``1 - alpha`` over the
 crossings within a distance) replace the Pallas TPU kernels
 ``tuturenderer_tpu/ops/pallas/cluster.py::_kernel_nearest``,
 ``::_kernel_anyhit`` and ``::_kernel_transmit``. On a CUDA tensor each
-launches its kernel from ``csrc/cluster_walk.cu`` (a per-ray walk of the
-tree in ``Clusters.node_box``/``node_link``) or raises; on a CPU tensor it
-runs the plain PyTorch version beside it, which is also the kernels'
-oracle on the card. A wrapper refuses rays that require grad.
+launches its kernel or raises: the nearest and any hit walk the BVH of
+``Clusters.bvh_*`` (``csrc/bvh_walk.cu``), the transmittance the cluster
+tree of ``Clusters.node_box``/``node_link`` (``csrc/cluster_walk.cu``). On
+a CPU tensor each runs the plain PyTorch version beside it, which is also
+the kernels' oracle on the card. A wrapper refuses rays that require grad.
+
+``cluster_walk_intersect`` and ``cluster_walk_occluded`` launch the
+nearest and any hit of ``csrc/cluster_walk.cu`` (the per-ray walk over
+whole 64-row clusters that the BVH walk replaced) on CUDA tensors only:
+the yardstick ``chip_smoke.py`` times the BVH walk against. They go when
+the transmittance kernel moves onto the BVH.
 
 The plain versions compute the same function densely: the same
 per-triangle arithmetic over every real row of the table (``tri_idx >= 0``,
@@ -18,11 +25,12 @@ kernels and the plain versions give bit-equal t, equal idx wherever t is
 unique, bu/bv equal wherever idx is, equal any-hit masks, and
 transmittances that differ only by the order of the product.
 
-``test_count`` (optional int64 [1] tensor on the rays' device) receives
-the number of ray/triangle tests made: a diagnostic, not passed on the
-main path. The launches are counted in ``LAUNCHES`` (shared with the dense
-kernels) under ``cluster_nearest``, ``cluster_anyhit`` and
-``cluster_transmit``.
+``test_count`` and ``node_count`` (optional int64 [1] tensors on the rays'
+device) receive the number of ray/triangle tests and of BVH node visits
+(two box tests each; the plain versions visit none): diagnostics, not
+passed on the main path. The launches are counted in ``LAUNCHES`` (shared
+with the dense kernels) under ``cluster_nearest``, ``cluster_anyhit``,
+``cluster_transmit``, ``walk_nearest`` and ``walk_anyhit``.
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import ctypes
 
 import torch
 
-from ..cluster import CLUSTER_SIZE, WOOP_F
+from ..cluster import CLUSTER_SIZE, NODE_F, ROW_F, WOOP_F
 from . import build
 from .intersect import (CHUNK, F32_MAX, LAUNCHES, PARALLEL_EPS, _raise_on,
                         refuse_grad)
@@ -38,7 +46,7 @@ from .intersect import (CHUNK, F32_MAX, LAUNCHES, PARALLEL_EPS, _raise_on,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_TABLE_ARGS = 4      # node_box, node_link, woop, tri_idx
+_TABLE_ARGS = 4      # node_box, node_link, woop, tri_idx / nodes, rows, ...
 
 
 def _lib():
@@ -53,7 +61,18 @@ def _lib():
     return lib
 
 
-def _check(clusters, cols, test_count) -> str:
+def _bvh_lib():
+    lib = build.load("bvh_walk")
+    if lib.bvh_nearest.argtypes is None:
+        lib.bvh_nearest.argtypes = [_P] * (_TABLE_ARGS + 6) + [_I] + \
+            [_P] * 7
+        lib.bvh_nearest.restype = _I
+        lib.bvh_anyhit.argtypes = [_P] * (_TABLE_ARGS + 7) + [_I] + [_P] * 4
+        lib.bvh_anyhit.restype = _I
+    return lib
+
+
+def _check(clusters, cols, *counts) -> str:
     """Validate the kernels' inputs; returns the device type."""
     dev = cols[0].device
     if dev.type not in ("cpu", "cuda"):
@@ -68,23 +87,33 @@ def _check(clusters, cols, test_count) -> str:
     refuse_grad(cols)
     c = clusters.aabb.shape[0]
     k = clusters.node_box.shape[0]
+    r = clusters.bvh_virt.shape[0]
+    kb = max(clusters.bvh_nodes.shape[0], 1)     # the root at least
     want = ((clusters.aabb, torch.float32, (c, 8)),
             (clusters.woop, torch.float32, (c, 8, 128)),
             (clusters.tri_idx, torch.int32, (c, CLUSTER_SIZE)),
             (clusters.node_box, torch.float32, (k, 8)),
-            (clusters.node_link, torch.int32, (k, 2)))
+            (clusters.node_link, torch.int32, (k, 2)),
+            (clusters.bvh_nodes, torch.float32, (kb, NODE_F)),
+            (clusters.bvh_rows, torch.float32, (r, ROW_F)),
+            (clusters.bvh_virt, torch.int32, (r,)))
     for a, dtype, shape in want:
         if a.dtype != dtype or tuple(a.shape) != shape or \
                 not a.is_contiguous():
             raise ValueError(f"cluster table {a.dtype} {tuple(a.shape)} is "
                              f"not a contiguous {dtype} {shape}")
+    if r != clusters.n_real:
+        raise ValueError(f"{r} BVH rows for the {clusters.n_real} real rows "
+                         "of tri_idx")
     for a in (*(t for t, _, _ in want), *cols):
         if a.device != dev:
             raise ValueError(f"tensors on {a.device} and {dev}")
-    if test_count is not None and (test_count.dtype != torch.int64 or
-                                   test_count.numel() != 1 or
-                                   test_count.device != dev):
-        raise ValueError("test_count must be one int64 on the rays' device")
+    for count in counts:
+        if count is not None and (count.dtype != torch.int64 or
+                                  count.numel() != 1 or
+                                  count.device != dev):
+            raise ValueError("test_count and node_count must each be one "
+                             "int64 on the rays' device")
     return dev.type
 
 
@@ -93,45 +122,100 @@ def _tables(clusters):
             clusters.woop.data_ptr(), clusters.tri_idx.data_ptr())
 
 
+def _bvh_tables(clusters):
+    return (clusters.bvh_nodes.data_ptr(), clusters.bvh_rows.data_ptr(),
+            clusters.bvh_virt.data_ptr(), clusters.tri_idx.data_ptr())
+
+
 def _ptrs(cols):
     return [c.data_ptr() for c in cols]
 
 
-def _counter(test_count):
-    return None if test_count is None else test_count.data_ptr()
+def _counter(count):
+    return None if count is None else count.data_ptr()
 
 
-def cluster_intersect(clusters, ox, oy, oz, dx, dy, dz, test_count=None):
+def _cuda_only(kind: str, name: str):
+    if kind != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors only")
+
+
+def _nearest_out(ox):
+    n = ox.shape[0]
+    return (torch.empty_like(ox), torch.empty(n, dtype=torch.int32,
+                                              device=ox.device),
+            torch.empty_like(ox), torch.empty_like(ox))
+
+
+def cluster_intersect(clusters, ox, oy, oz, dx, dy, dz, test_count=None,
+                      node_count=None):
     """Nearest triangle hit per ray -> (t, idx, bu, bv), [N] each; idx is
     the original triangle id (int32), t = 3.4e38 and idx = -1 on a miss."""
     cols = (ox, oy, oz, dx, dy, dz)
-    if _check(clusters, cols, test_count) == "cpu":
+    if _check(clusters, cols, test_count, node_count) == "cpu":
         return cluster_intersect_plain(clusters, *cols, test_count)
+    out = _nearest_out(ox)
     n = ox.shape[0]
-    t = torch.empty_like(ox)
-    idx = torch.empty(n, dtype=torch.int32, device=ox.device)
-    bu = torch.empty_like(ox)
-    bv = torch.empty_like(ox)
     if n == 0:
-        return t, idx, bu, bv
-    lib = _lib()
+        return out
+    lib = _bvh_lib()
     with torch.cuda.device(ox.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cluster_nearest(
-            *_tables(clusters), *_ptrs(cols), n, t.data_ptr(),
-            idx.data_ptr(), bu.data_ptr(), bv.data_ptr(),
-            _counter(test_count), stream)
-    _raise_on(err, "cluster_nearest")
+        err = lib.bvh_nearest(*_bvh_tables(clusters), *_ptrs(cols), n,
+                              *_ptrs(out), _counter(test_count),
+                              _counter(node_count), stream)
+    _raise_on(err, "bvh_nearest")
     LAUNCHES["cluster_nearest"] += 1
-    return t, idx, bu, bv
+    return out
 
 
 def cluster_occluded(clusters, ox, oy, oz, dx, dy, dz, dist,
-                     test_count=None):
+                     test_count=None, node_count=None):
     """Any triangle hit with t < dist and |t - dist| >= 1e-4 -> bool [N]."""
     cols = (ox, oy, oz, dx, dy, dz, dist)
-    if _check(clusters, cols, test_count) == "cpu":
+    if _check(clusters, cols, test_count, node_count) == "cpu":
         return cluster_occluded_plain(clusters, *cols, test_count)
+    n = ox.shape[0]
+    hit = torch.empty(n, dtype=torch.int32, device=ox.device)
+    if n == 0:
+        return hit.bool()
+    lib = _bvh_lib()
+    with torch.cuda.device(ox.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.bvh_anyhit(*_bvh_tables(clusters), *_ptrs(cols), n,
+                             hit.data_ptr(), _counter(test_count),
+                             _counter(node_count), stream)
+    _raise_on(err, "bvh_anyhit")
+    LAUNCHES["cluster_anyhit"] += 1
+    return hit != 0
+
+
+def cluster_walk_intersect(clusters, ox, oy, oz, dx, dy, dz,
+                           test_count=None):
+    """``cluster_intersect`` by the per-ray walk over whole clusters
+    (``csrc/cluster_walk.cu``); CUDA tensors only."""
+    cols = (ox, oy, oz, dx, dy, dz)
+    _cuda_only(_check(clusters, cols, test_count), "cluster_walk_intersect")
+    out = _nearest_out(ox)
+    n = ox.shape[0]
+    if n == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(ox.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.cluster_nearest(*_tables(clusters), *_ptrs(cols), n,
+                                  *_ptrs(out), _counter(test_count), stream)
+    _raise_on(err, "cluster_nearest")
+    LAUNCHES["walk_nearest"] += 1
+    return out
+
+
+def cluster_walk_occluded(clusters, ox, oy, oz, dx, dy, dz, dist,
+                          test_count=None):
+    """``cluster_occluded`` by the per-ray walk over whole clusters
+    (``csrc/cluster_walk.cu``); CUDA tensors only."""
+    cols = (ox, oy, oz, dx, dy, dz, dist)
+    _cuda_only(_check(clusters, cols, test_count), "cluster_walk_occluded")
     n = ox.shape[0]
     hit = torch.empty(n, dtype=torch.int32, device=ox.device)
     if n == 0:
@@ -142,7 +226,7 @@ def cluster_occluded(clusters, ox, oy, oz, dx, dy, dz, dist,
         err = lib.cluster_anyhit(*_tables(clusters), *_ptrs(cols), n,
                                  hit.data_ptr(), _counter(test_count), stream)
     _raise_on(err, "cluster_anyhit")
-    LAUNCHES["cluster_anyhit"] += 1
+    LAUNCHES["walk_anyhit"] += 1
     return hit != 0
 
 

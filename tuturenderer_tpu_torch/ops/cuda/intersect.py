@@ -35,11 +35,12 @@ MT_FLOATS = 12          # an MT table row
 MAX_TRIS = 4096         # dense limit; larger scenes take cluster tables
 CHUNK = 512             # triangles per [N, C] tile of the plain versions
 
-# launches per kernel, the cluster kernels' (ops/cuda/cluster.py) and the
-# visit-walk probe's (tools/proto_visit.py) included
+# launches per kernel, the cluster kernels' and their yardstick's
+# (ops/cuda/cluster.py) and the visit-walk probe's (tools/proto_visit.py)
+# included
 LAUNCHES = {"nearest": 0, "anyhit": 0, "mt_nearest": 0, "mt_anyhit": 0,
             "cluster_nearest": 0, "cluster_anyhit": 0, "cluster_transmit": 0,
-            "proto_visit": 0}
+            "walk_nearest": 0, "walk_anyhit": 0, "proto_visit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

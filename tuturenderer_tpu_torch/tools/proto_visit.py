@@ -90,6 +90,13 @@ def run(vlist, ventry, ox, oy, oz, dx, dy, dz, live, woop, nc: int):
         return run_plain(vlist, ventry, *rays, woop, nc)
     if vlist.device.type != "cuda":
         raise ValueError(f"no visit-walk kernel for {vlist.device}")
+    return _launch(vlist, ventry, rays, woop, nc, n_tiles)
+
+
+def _launch(vlist, ventry, rays, woop, nc: int, n_tiles: int):
+    """``run``'s launch on CUDA inputs that ``_check`` passed (it reads the
+    visit lists on the host, so ``run`` synchronises; this does not)."""
+    ox = rays[0]
     t = torch.empty_like(ox)
     idx = torch.empty(ox.shape[0], dtype=torch.int32, device=ox.device)
     lib = _lib()
