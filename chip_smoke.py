@@ -7,36 +7,36 @@ Run from the root of a checkout, on a machine with a CUDA device and nvcc.
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: name, power limit, torch and CUDA versions;
-2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``,
-   ``bvh_walk.cu``, ``cluster_walk.cu`` and ``proto_visit.cu``, one process
-   each, started together, with each kernel's registers, stack frame and
-   spills;
+2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``
+   (K1-K4), ``bvh_walk.cu`` (K5-K7) and ``proto_visit.cu`` (K8), one
+   process each, started together, with each kernel's registers, stack
+   frame and spills;
 3. each dense intersection kernel, in the Woop form (K1, K2) and the
    Moller-Trumbore form (K3, K4), against its plain PyTorch version on the
-   card: simple_box's 12 triangles at 1,048,576 rays, a 4095-triangle soup
-   at 65,536 rays, rays aimed at shared edges and vertices, and shadow
-   distances at 0.5x, 1x, 2x and within 1e-4 of the hit distance; with the
-   device time of each (``utils/timing.py``: CUDA events around
-   back-to-back calls, the stream held while the host enqueues them);
+   card: simple_box's 12 triangles at 1,048,576 rays, the first 100,001 of
+   them (a ragged count: odd, and no multiple of a block), a 4095-triangle
+   soup at 65,536 rays, rays aimed at shared edges and vertices, and
+   shadow distances at 0.5x, 1x, 2x and within 1e-4 of the hit distance;
+   with the device time and the bound of each (``utils/timing.py``: CUDA
+   events around back-to-back calls, the stream held while the host
+   enqueues them);
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
    on the card, with the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
    (``tests/data/torch_simple_box_jax_ref.npy``) against that image;
-6. each cluster kernel (K5 nearest and K6 any hit, the BVH walk of
-   ``bvh_walk.cu``; K7 transmittance) and the yardstick (the per-ray walk
-   over whole clusters of ``cluster_walk.cu`` for the nearest and any hit)
-   against the plain versions: sphere_showcase (100,356 triangles) at
-   65,536 camera and random bounce rays, terrain (1,048,354 triangles) at
-   16,384, and the bounce wavefronts of 262,144 rays taken from a 1-spp
-   render of each (terrain's held to the plain versions on every 4th ray);
-   the same shadow distances, and for K7 a table whose alphas are drawn
-   from {0.3, 0.85, 1.0}; the BVH build seconds; at each wavefront, the
-   device time of K5/K6 and the yardstick in turns (new, old, old, new),
-   ray/triangle tests and node visits per ray and the bound, K5/K6 on each
-   8,192-ray slice of the wavefront alone, and K7's device time and bound
-   at the showcase wavefront; there, K5/K6, the yardstick and K7 also under
-   the profiler's CUDA trace beside the event timer, with the kernel
-   records the trace kept;
+6. each cluster kernel, the three modes of the BVH walk of
+   ``bvh_walk.cu`` (K5 nearest hit, K6 any hit, K7 transmittance), against
+   the plain versions: sphere_showcase (100,356 triangles) at 65,536 camera
+   and random bounce rays, terrain (1,048,354 triangles) at 16,384, and the
+   bounce wavefronts of 262,144 rays taken from a 1-spp render of each
+   (terrain's held to the plain versions on every 4th ray); the same
+   shadow distances, and for K7 a table whose alphas are drawn from
+   {0.3, 0.85, 1.0}; the BVH build seconds; at each wavefront, the device
+   time of K5, K6 and K7 in turns, ray/triangle tests and node visits per
+   ray and the bound, and each kernel on each 8,192-ray slice of the
+   wavefront alone; at the showcase wavefront the plain versions' time,
+   and each kernel under the profiler's CUDA trace beside the event timer,
+   with the kernel records the trace kept;
 7. the mesh-scale slice: ``render(sphere_showcase(512, 512),
    RenderOptions(spp=16))``, ``terrain(512, 512, nx=724, nz=724)`` at 4 spp
    and the translucent showcase (the sphere at alpha 0.5) at 256^2 x 4 spp
@@ -68,7 +68,6 @@ exits with code 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import json
 import os
 import subprocess
@@ -82,11 +81,10 @@ REF_IMAGE = "tests/data/torch_simple_box_jax_ref.npy"
 REF_SIZE, REF_SPP, REF_SEED = (24, 20), 4, 3   # how the reference was made
 DENSE_SRC = "tuturenderer_tpu_torch/csrc/dense_intersect.cu"
 BVH_SRC = "tuturenderer_tpu_torch/csrc/bvh_walk.cu"
-CLUSTER_SRC = "tuturenderer_tpu_torch/csrc/cluster_walk.cu"
 SOURCES = {"nearest": DENSE_SRC, "anyhit": DENSE_SRC,
            "mt_nearest": DENSE_SRC, "mt_anyhit": DENSE_SRC,
            "cluster_nearest": BVH_SRC, "cluster_anyhit": BVH_SRC,
-           "cluster_transmit": CLUSTER_SRC,
+           "cluster_transmit": BVH_SRC,
            "proto_visit": "tuturenderer_tpu_torch/csrc/proto_visit.cu"}
 REPLACES = {"nearest": "tuturenderer_tpu/ops/pallas/intersect.py:164",
             "anyhit": "tuturenderer_tpu/ops/pallas/intersect.py:218",
@@ -210,20 +208,22 @@ def dense_form(form: str) -> dict:
                 labels=("K3", "K4"))
 
 
-def compare_kernels(name: str, form: str, scene, o, d, report: dict):
+def compare_kernels(name: str, form: str, scene, rays, report: dict,
+                    timed: bool = True):
     """Kernel vs plain on one ray set, nearest hit and any hit, in one
-    dense form; returns the kernel and plain device times (ms)."""
+    dense form: hits equal, t and the barycentrics bit-equal, idx equal
+    wherever t is unique, every any-hit mask equal. Returns the kernel and
+    plain device times (ms), or {} when not ``timed``."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
     f = dense_form(form)
     k_near, k_occ = f["keys"]
     table = f["pack"](scene)
     name = f"{name} [{'/'.join(f['labels'])}]"
-    rays = cols(o) + cols(d)
     tk, ik, uk, vk = f["near"](table, *rays)
     tp, ip, up, vp = f["near_plain"](table, *rays)
     torch.cuda.synchronize()
     hk, hp = ik >= 0, ip >= 0
-    agree = (hk == hp).float().mean().item()
+    n_split = int((hk != hp).sum())
     both = hk & hp
     t_err = (tk - tp)[both].abs().max().item() if both.any() else 0.0
     # the kernel and the plain version both keep the lowest index on an
@@ -233,17 +233,17 @@ def compare_kernels(name: str, form: str, scene, o, d, report: dict):
     same = both & (ik == ip)
     uv_err = max((uk - up)[same].abs().max().item(),
                  (vk - vp)[same].abs().max().item()) if same.any() else 0.0
-    log(f"  {name}: nearest rays={o.shape[0]} hit={hp.float().mean().item():.4f}"
-        f" hit/miss agreement={agree:.6f} max|dt|={t_err:.3g}"
-        f" idx differs={int(idx_diff.sum())} max|du|,|dv|={uv_err:.3g}")
-    if agree != 1.0:
-        raise AssertionError(f"{name}: hit/miss disagree on "
-                             f"{(1 - agree) * 100:.4f}% of rays")
-    if both.any():
-        torch.testing.assert_close(tk[both], tp[both], rtol=1e-5, atol=0.0)
+    log(f"  {name}: nearest rays={rays[0].shape[0]} "
+        f"hit={hp.float().mean().item():.4f} hit/miss disagree={n_split} "
+        f"max|dt|={t_err:.3g} idx differs={int(idx_diff.sum())} "
+        f"max|du|,|dv|={uv_err:.3g}")
+    if n_split:
+        raise AssertionError(f"{name}: hit/miss disagree on {n_split} rays")
+    if t_err:
+        raise AssertionError(f"{name}: t differs by {t_err}")
     if bool((tk[idx_diff] != tp[idx_diff]).any()):
         raise AssertionError(f"{name}: idx differs where t is unique")
-    if uv_err > 1e-5:
+    if uv_err:
         raise AssertionError(f"{name}: barycentrics differ by {uv_err}")
     err = max(t_err, uv_err)
     report[k_near] = max(report.get(k_near, 0.0), err)
@@ -262,6 +262,8 @@ def compare_kernels(name: str, form: str, scene, o, d, report: dict):
         if n_diff:
             raise AssertionError(f"{name}: any-hit disagrees on {n_diff} rays")
     report[k_occ] = max(report.get(k_occ, 0.0), any_err)
+    if not timed:
+        return {}
 
     dist = (t_ref * 2.0).contiguous()
     calls = {k_near: lambda: f["near"](table, *rays),
@@ -297,7 +299,7 @@ def phase_device():
 def phase_build():
     log("== phase 2: build")
     from tuturenderer_tpu_torch.ops.cuda import build
-    names = ("dense_intersect", "bvh_walk", "cluster_walk", "proto_visit")
+    names = ("dense_intersect", "bvh_walk", "proto_visit")
     t0 = time.perf_counter()
     build.load_all(names)
     secs = time.perf_counter() - t0
@@ -317,49 +319,36 @@ def phase_build():
 def phase_kernels(dev):
     log("== phase 3: dense kernels vs plain on the card, Woop (K1/K2) and "
         "Moller-Trumbore (K3/K4)")
-    from tuturenderer_tpu_torch.scene.data import SceneBuilder
-    from tuturenderer_tpu_torch.scene.presets import simple_box
-    gen = torch.Generator(device=dev).manual_seed(0)
+    from tuturenderer_tpu_torch.tools.time_kernels import dense_sets
     report, times, bounds = {}, {}, {}
 
     # simple_box: 2^19 camera rays (a checkerboard of the 1024^2 frame) and
-    # 2^19 bounce rays from random points inside the box
-    scene, cam = simple_box(1024, 1024, device=dev)
-    from tuturenderer_tpu_torch.camera import primary_ray
-    ys, xs = torch.meshgrid(torch.arange(1024, device=dev),
-                            torch.arange(1024, device=dev), indexing="ij")
-    keep = ((xs + ys) % 2 == 0).reshape(-1)
-    px, py = xs.reshape(-1)[keep], ys.reshape(-1)[keep]
-    o_cam, d_cam, _ = primary_ray(cam, px, py)
-    half = px.shape[0]
-    o_b = torch.rand((half, 3), generator=gen, device=dev) * 1.98 - 0.99
-    d_b = random_unit(half, gen, dev)
-    o = torch.cat([torch.stack(list(o_cam), 1), o_b])
-    d = torch.cat([torch.stack(list(d_cam), 1), d_b])
-    assert o.shape[0] == 1 << 20
-    # rays at shared edges and vertices
-    eye = torch.stack(list(cam.position)).to(dev)
-    oe, de = edge_rays(scene, eye, dev)
+    # 2^19 bounce rays from random points inside the box; a 4095-triangle
+    # soup at 65,536 rays; rays at shared edges and vertices
+    sets = dense_sets(dev)
+    scene, cam, rays = sets["simple_box 1M"]
+    soup, _, soup_rays = sets["soup 4095 x 65536"]
+    assert rays[0].shape[0] == 1 << 20
+    oe, de = edge_rays(scene, torch.stack(list(cam.position)).to(dev), dev)
+    edges = cols(oe) + cols(de)
 
-    # a 4095-triangle soup, 65,536 rays
-    r = np.random.RandomState(7)
-    b = SceneBuilder()
-    m = b.add_material()
-    centers = r.randn(4095, 3) * 2.0
-    b.add_triangles((centers[:, None, :] + 0.6 * r.randn(4095, 3, 3))
-                    .astype(np.float32), None, None, m)
-    soup = b.build(device=dev)
-    o_s = torch.randn((65536, 3), generator=gen, device=dev) * 3.0
-    d_s = random_unit(65536, gen, dev)
-
+    # a ragged count: odd, and no multiple of a block of rays
+    ragged = 100001
     for form in ("woop", "mt"):
-        times.update(compare_kernels("simple_box 12 tris", form, scene, o, d,
+        times.update(compare_kernels("simple_box 12 tris", form, scene, rays,
                                      report))
-        bounds.update(dense_bounds(form, scene, o, d))
-        compare_kernels("simple_box edges+vertices", form, scene, oe, de,
+        bounds.update(dense_bounds(form, scene, rays))
+        compare_kernels(f"simple_box {ragged} rays", form, scene,
+                        [c[:ragged] for c in rays], report, timed=False)
+        compare_kernels("simple_box edges+vertices", form, scene, edges,
                         report)
         times.update({f"soup_{k}": v for k, v in compare_kernels(
-            "soup 4095 tris", form, soup, o_s, d_s, report).items()})
+            "soup 4095 tris", form, soup, soup_rays, report).items()})
+        # the soup's nearest hit tests every triangle: its operations bound
+        f = dense_form(form)
+        n_soup = soup_rays[0].shape[0]
+        bound(f"{f['labels'][0]} soup 4095 tris", n_soup * 40 +
+              4095 * f["floats"] * 4, n_soup * 4095.0, f["flop"])
     return report, times, bounds
 
 
@@ -377,7 +366,7 @@ def bound(name: str, n_bytes: float, tests: float,
     return max(byte_ms, op_ms), by
 
 
-def dense_bounds(form: str, scene, o, d) -> dict:
+def dense_bounds(form: str, scene, rays) -> dict:
     """A dense form's bounds at the simple_box 1M-ray set: rays read once
     (24 bytes, 28 with dist), results written once (16, 4), the table
     once; tests: every triangle for the nearest hit, up to the first
@@ -386,8 +375,7 @@ def dense_bounds(form: str, scene, o, d) -> dict:
     f = dense_form(form)
     k_near, k_occ = f["keys"]
     table = f["pack"](scene)
-    rays = cols(o) + cols(d)
-    n, n_tris = o.shape[0], table.shape[0] // f["floats"]
+    n, n_tris = rays[0].shape[0], table.shape[0] // f["floats"]
     t, idx, _, _ = f["near_plain"](table, *rays)
     dist = torch.where(idx >= 0, t, torch.full_like(t, 10.0)) * 2.0
     tt, _, _, ok = f["tile"](table.reshape(-1, f["floats"]),
@@ -525,17 +513,6 @@ def translucent_showcase(width: int, height: int, nu: int = 224,
     return scene, cam
 
 
-def alpha_table(clusters, dev):
-    """The clusters with every real row's alpha (slot 13) drawn from
-    {0.3, 0.85, 1.0}."""
-    woop = clusters.woop.clone()
-    rows = woop.view(woop.shape[0], -1)[:, :64 * 14].view(-1, 64, 14)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    pick = torch.randint(0, 3, rows.shape[:2], generator=gen, device=dev)
-    rows[..., 13] = torch.tensor([0.3, 0.85, 1.0], device=dev)[pick]
-    return dataclasses.replace(clusters, woop=woop)
-
-
 def check_nearest(name: str, got, want):
     """A nearest-hit kernel's (t, idx, bu, bv) against the plain version's:
     t bit-equal, bu/bv equal wherever idx is (with t bit-equal, a differing
@@ -557,49 +534,21 @@ def check_nearest(name: str, got, want):
     return idx_diff
 
 
-def capture_wavefront(scene, cam):
-    """The inputs of the depth-1 nearest-hit and shadow calls of a 1-spp
-    render: a bounce wavefront as the main path gives it to the kernels
-    (dead lanes included, masked as the path masks them)."""
-    from tuturenderer_tpu_torch.integrators.path import render
-    from tuturenderer_tpu_torch.ops import intersect as I
-    from tuturenderer_tpu_torch.options import RenderOptions
-    calls = {"near": [], "occ": []}
-    orig = (I.cluster_intersect, I.cluster_occluded)
-
-    def near(cl, *a, **kw):
-        calls["near"].append([x.clone() for x in a])
-        return orig[0](cl, *a, **kw)
-
-    def occ(cl, *a, **kw):
-        calls["occ"].append([x.clone() for x in a])
-        return orig[1](cl, *a, **kw)
-
-    I.cluster_intersect, I.cluster_occluded = near, occ
-    try:
-        render(scene, cam, RenderOptions(spp=1), seed=0)
-    finally:
-        I.cluster_intersect, I.cluster_occluded = orig
-    return calls["near"][1], calls["occ"][1]
-
-
 def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
                             shadow=None, dists=SHADOW_DISTS,
                             step: int = 1) -> dict:
-    """K5/K6 (the BVH walk), K7 and the yardstick walk over whole clusters
-    against the plain versions on one ray set: t bit-equal, bu/bv equal
-    wherever idx is, every any-hit mask equal, K7 within rtol 1e-5 / atol
-    1e-6. ``shadow`` (6 columns + dist) replaces the any-hit and K7 rays
-    and distances when given; K7 is skipped when ``alpha_cl`` is None. The
-    kernels trace every ray, the plain versions every ``step``-th, and the
-    two are compared there. Returns the max abs error per kernel."""
+    """K5, K6 and K7 (the BVH walk's three modes) against the plain
+    versions on one ray set: t bit-equal, bu/bv equal wherever idx is,
+    every any-hit mask equal, K7 within rtol 1e-5 / atol 1e-6. ``shadow``
+    (6 columns + dist) replaces the any-hit and K7 rays and distances when
+    given; K7 runs on ``alpha_cl``. The kernels trace every ray, the plain
+    versions every ``step``-th, and the two are compared there. Returns the
+    max abs error per kernel."""
     from tuturenderer_tpu_torch.ops.cuda import cluster as C
     sub = lambda cs: [c[::step].contiguous() for c in cs]
     want = C.cluster_intersect_plain(clusters, *sub(rays))
-    for label, fn in (("K5", C.cluster_intersect),
-                      ("yardstick nearest", C.cluster_walk_intersect)):
-        got = [g[::step] for g in fn(clusters, *rays)]
-        check_nearest(f"{name} {label}", got, want)
+    got = [g[::step] for g in C.cluster_intersect(clusters, *rays)]
+    check_nearest(f"{name} K5", got, want)
     errs = {"cluster_nearest": 0.0, "cluster_anyhit": 0.0,
             "cluster_transmit": 0.0}
     if shadow is None:
@@ -615,27 +564,23 @@ def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
         sub_dist = dist[::step].contiguous()
         bp = C.cluster_occluded_plain(clusters, *sub(r6), sub_dist)
         bk = C.cluster_occluded(clusters, *r6, dist)[::step]
-        bw = C.cluster_walk_occluded(clusters, *r6, dist)[::step]
         n_diff = int((bk != bp).sum())
-        w_diff = int((bw != bp).sum())
-        msg = (f"  {name}: dist={label} K6 blocked={bp.float().mean():.4f} "
-               f"disagree={n_diff}, yardstick disagree={w_diff}")
-        if alpha_cl is not None:
-            xk = C.cluster_transmittance(alpha_cl, *r6, dist)[::step]
-            xp = C.cluster_transmittance_plain(alpha_cl, *sub(r6), sub_dist)
-            x_err = (xk - xp).abs().max().item()
-            msg += f"; K7 mean={xp.mean():.4f} max|err|={x_err:.3g}"
-            torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
-            errs["cluster_transmit"] = max(errs["cluster_transmit"], x_err)
-        log(msg)
-        if n_diff or w_diff:
+        xk = C.cluster_transmittance(alpha_cl, *r6, dist)[::step]
+        xp = C.cluster_transmittance_plain(alpha_cl, *sub(r6), sub_dist)
+        x_err = (xk - xp).abs().max().item()
+        log(f"  {name}: dist={label} K6 blocked={bp.float().mean():.4f} "
+            f"disagree={n_diff}; K7 mean={xp.mean():.4f} at 0 "
+            f"{(xp == 0).float().mean():.4f} max|err|={x_err:.3g}")
+        if n_diff:
             raise AssertionError(f"{name}: any hit disagrees on {n_diff} "
-                                 f"(BVH) / {w_diff} (yardstick) rays")
+                                 "rays")
+        torch.testing.assert_close(xk, xp, rtol=1e-5, atol=1e-6)
+        errs["cluster_transmit"] = max(errs["cluster_transmit"], x_err)
     return errs
 
 
 def log_tables(title: str, scene, build_s: float):
-    """Log a cluster scene's table sizes and the seconds its trees take to
+    """Log a cluster scene's table sizes and the seconds its BVH takes to
     build on the host (rebuilt here from the tables, timed alone)."""
     from tuturenderer_tpu_torch.ops.cluster import (BVH_LEAF, build_bvh,
                                                     build_tree)
@@ -643,95 +588,96 @@ def log_tables(title: str, scene, build_s: float):
     host = lambda a: a.cpu().numpy()
     aabb, woop, tri_idx = host(cl.aabb), host(cl.woop), host(cl.tri_idx)
     t0 = time.perf_counter()
-    _, link = build_tree(aabb)
+    link = build_tree(aabb)
     t1 = time.perf_counter()
     _, _, _, depth = build_bvh(aabb, woop, tri_idx, link)
     t2 = time.perf_counter()
     log(f"{title}: {scene.n_tris} triangles, "
         f"{int((cl.tri_idx[:, 0] >= 0).sum())} clusters, scene built in "
-        f"{build_s:.2f} s; cluster tree {cl.node_box.shape[0]} nodes built "
-        f"in {t1 - t0:.2f} s; BVH {cl.bvh_nodes.shape[0]} nodes of depth "
+        f"{build_s:.2f} s; cluster tree {len(link)} nodes built in "
+        f"{t1 - t0:.2f} s; BVH {cl.bvh_nodes.shape[0]} nodes of depth "
         f"{depth}, leaves of at most {BVH_LEAF} rows, built in "
         f"{t2 - t1:.2f} s")
 
 
-def time_walks(name: str, cl, near, occ) -> dict:
-    """K5/K6 (the BVH walk) and the yardstick walk over whole clusters in
-    turns (new, old, old, new) on one wavefront: device ms of each, tests
-    and node visits per ray, and the bound of each."""
+def walk_calls(cl, alpha_cl, near, occ) -> dict:
+    """key -> (TPU kernel label, wrapper, tables, rays) of K5, K6 and K7 on
+    one wavefront; K7 on ``alpha_cl``, with K6's shadow rays."""
     from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    return {"cluster_nearest": ("K5", C.cluster_intersect, cl, near),
+            "cluster_anyhit": ("K6", C.cluster_occluded, cl, occ),
+            "cluster_transmit": ("K7", C.cluster_transmittance, alpha_cl,
+                                 occ)}
+
+
+def walk_stats(name: str, cl, alpha_cl, near, occ) -> dict:
+    """K5, K6 and K7 on one wavefront: device ms of each, read twice in
+    turns (K5 K6 K7 K7 K6 K5), ray/triangle tests and node visits per ray,
+    and the bound of each: the rays read once (24 bytes, 28 with dist), the
+    results written once (16 bytes K5, 4 K6/K7), and the tables each reads
+    (nodes and rows; virt and tri_idx for K5; virt and one alpha per real
+    row for K7)."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
+    calls = walk_calls(cl, alpha_cl, near, occ)
     n = near[0].shape[0]
     size = lambda ts: sum(a.numel() * a.element_size() for a in ts)
-    new_bytes = size((cl.bvh_nodes, cl.bvh_rows, cl.bvh_virt, cl.tri_idx))
-    old_bytes = size((cl.woop, cl.tri_idx, cl.node_box, cl.node_link))
+    tree = size((cl.bvh_nodes, cl.bvh_rows))
+    table_bytes = {"cluster_nearest": tree + size((cl.bvh_virt, cl.tri_idx)),
+                   "cluster_anyhit": tree,
+                   "cluster_transmit": tree + size((cl.bvh_virt,)) +
+                   4 * cl.n_real}
+    ray_bytes = {"cluster_nearest": 40, "cluster_anyhit": 32,
+                 "cluster_transmit": 32}
+    order = list(calls) + list(calls)[::-1]
+    turns = {k: [] for k in calls}
+    for k in order:
+        _, fn, table, args = calls[k]
+        turns[k].append(device_ms(lambda: fn(table, *args)))
     out = {}
-    for k, new, old, args, ray_bytes in (
-            ("cluster_nearest", C.cluster_intersect, C.cluster_walk_intersect,
-             near, 40),
-            ("cluster_anyhit", C.cluster_occluded, C.cluster_walk_occluded,
-             occ, 32)):
+    for k, (label, fn, table, args) in calls.items():
         tests = torch.zeros(1, dtype=torch.int64, device=near[0].device)
-        nodes, old_tests = torch.zeros_like(tests), torch.zeros_like(tests)
-        new(cl, *args, test_count=tests, node_count=nodes)
-        old(cl, *args, test_count=old_tests)
-        tests, nodes, old_tests = (float(c.item()) for c in
-                                   (tests, nodes, old_tests))
-        turns = [device_ms(lambda f=f: f(cl, *args))
-                 for f in (new, old, old, new)]
-        ms, prev = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        log(f"  {k} {name}: {n} rays: device ms BVH walk {turns[0]:.4f} "
-            f"{turns[3]:.4f} (mean {ms:.4f}), yardstick {turns[1]:.4f} "
-            f"{turns[2]:.4f} (mean {prev:.4f}), {prev / ms:.2f}x; tests/ray "
-            f"{tests / n:.2f}, node visits/ray {nodes / n:.2f}; yardstick "
-            f"tests/ray {old_tests / n:.2f}")
-        b_ms, b_by = bound(f"{k} {name}", n * ray_bytes + new_bytes, tests,
+        nodes = torch.zeros_like(tests)
+        fn(table, *args, test_count=tests, node_count=nodes)
+        tests, nodes = float(tests.item()), float(nodes.item())
+        ms = sum(turns[k]) / 2
+        log(f"  {label} {name}: {n} rays: device ms {turns[k][0]:.4f} "
+            f"{turns[k][1]:.4f} (mean {ms:.4f}); tests/ray {tests / n:.2f}, "
+            f"node visits/ray {nodes / n:.2f}")
+        b_ms, b_by = bound(f"{label} {name}",
+                           n * ray_bytes[k] + table_bytes[k], tests,
                            nodes=nodes)
-        old_ms, _ = bound(f"{k} {name} yardstick, its tests alone",
-                          n * ray_bytes + old_bytes, old_tests)
-        out[k] = {"ms": ms, "prev_ms": prev, "bound_ms": b_ms,
-                  "bound_by": b_by, "prev_bound_ms": old_ms,
+        out[k] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
                   "tests_per_ray": tests / n, "nodes_per_ray": nodes / n}
-    slices(name, cl, near, occ)
+    slices(name, calls)
     return out
 
 
-def slices(name: str, cl, near, occ, size: int = 8192):
-    """K5/K6's device ms on each ``size``-ray slice of a wavefront alone
-    (64 blocks of 128 rays: less than one wave on the card, so a slice
-    takes about as long as its slowest warp) against the whole launch: the
-    long warps' tail, apart from throughput."""
-    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+def slices(name: str, calls: dict, size: int = 8192):
+    """Each walk kernel's device ms on each ``size``-ray slice of a
+    wavefront alone (64 blocks of 128 rays: less than one wave on the card,
+    so a slice takes about as long as its slowest warp) against the whole
+    launch: the long warps' tail, apart from throughput."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
-    for k, fn, args in (("cluster_nearest", C.cluster_intersect, near),
-                        ("cluster_anyhit", C.cluster_occluded, occ)):
+    for label, fn, table, args in calls.values():
         ms = [device_ms(lambda p=[c[lo:lo + size].contiguous() for c in args]:
-                        fn(cl, *p), reps=5, warm=1, hold_ms=5.0)
+                        fn(table, *p), reps=5, warm=1, hold_ms=5.0)
               for lo in range(0, args[0].shape[0], size)]
-        whole = device_ms(lambda: fn(cl, *args))
-        log(f"  {k} {name}: whole launch {whole:.4f} ms; each {size}-ray "
+        whole = device_ms(lambda: fn(table, *args))
+        log(f"  {label} {name}: whole launch {whole:.4f} ms; each {size}-ray "
             f"slice alone, in ray order: {' '.join(f'{m:.4f}' for m in ms)}"
             f" (max {max(ms):.4f} = {max(ms) / whole:.2f} of the whole)")
 
 
-def compare_timers(cl, alpha_cl, near, occ):
-    """Each cluster kernel at the showcase wavefront between CUDA events
+def compare_timers(calls: dict):
+    """Each walk kernel at the showcase wavefront between CUDA events
     (``utils/timing.py``) and under the profiler's CUDA trace, in turns
     (events, profiler, profiler, events), with the kernel records the trace
-    kept. The any-hit wrappers' ``hit != 0`` is in the event time only."""
-    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    kept. The any-hit wrapper's ``hit != 0`` is in the event time only."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
-    for label, kernel, call in (
-            ("K5", "bvh_walk_kernel", lambda: C.cluster_intersect(cl, *near)),
-            ("K6", "bvh_walk_kernel", lambda: C.cluster_occluded(cl, *occ)),
-            ("yardstick nearest", "cluster_walk_kernel",
-             lambda: C.cluster_walk_intersect(cl, *near)),
-            ("yardstick any hit", "cluster_walk_kernel",
-             lambda: C.cluster_walk_occluded(cl, *occ)),
-            ("K7", "cluster_walk_kernel",
-             lambda: C.cluster_transmittance(alpha_cl, *occ))):
+    for label, fn, table, args in calls.values():
+        call = lambda: fn(table, *args)
         ev = [device_ms(call)]
-        prof = [profiler_ms(call, kernel) for _ in range(2)]
+        prof = [profiler_ms(call, "bvh_walk_kernel") for _ in range(2)]
         ev.append(device_ms(call))
         log(f"  timers, {label} at the showcase wavefront: events "
             f"{ev[0]:.4f} {ev[1]:.4f} ms; profiler " +
@@ -744,6 +690,8 @@ def phase_cluster_kernels(dev):
     from tuturenderer_tpu_torch.camera import primary_ray
     from tuturenderer_tpu_torch.models.scenes import sphere_showcase, terrain
     from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.tools.time_kernels import (alpha_table,
+                                                           wavefront)
     from tuturenderer_tpu_torch.utils.timing import device_ms
     gen = torch.Generator(device=dev).manual_seed(1)
     errs = {}
@@ -768,56 +716,44 @@ def phase_cluster_kernels(dev):
     t0 = time.perf_counter()
     scene, cam = sphere_showcase(512, 512, device=dev)
     log_tables("sphere_showcase(512, 512)", scene, time.perf_counter() - t0)
-    alpha_cl = alpha_table(scene.clusters, dev)
-    merge(compare_cluster_kernels("sphere_showcase", scene.clusters,
-                                  alpha_cl, ray_set(scene, cam, 65536)))
+    cl = scene.clusters
+    alpha_cl = alpha_table(cl, dev)
+    merge(compare_cluster_kernels("sphere_showcase", cl, alpha_cl,
+                                  ray_set(scene, cam, 65536)))
 
-    near, occ = capture_wavefront(scene, cam)
-    merge(compare_cluster_kernels("sphere_showcase wavefront",
-                                  scene.clusters, alpha_cl, near,
-                                  shadow=occ))
+    near, occ = wavefront(scene, cam)
+    merge(compare_cluster_kernels("sphere_showcase wavefront", cl, alpha_cl,
+                                  near, shadow=occ))
 
     # device time, tests and node visits per ray and bound at the main
-    # path's shapes: K5/K6 against the yardstick, then K7 and the plain
-    # versions
-    cl = scene.clusters
+    # path's shapes, then the plain versions
     n = near[0].shape[0]
-    stats = time_walks("showcase wavefront", cl, near, occ)
+    stats = walk_stats("showcase wavefront", cl, alpha_cl, near, occ)
     plain = {"cluster_nearest": (C.cluster_intersect_plain, cl, near),
              "cluster_anyhit": (C.cluster_occluded_plain, cl, occ),
              "cluster_transmit": (C.cluster_transmittance_plain, alpha_cl,
                                   occ)}
     for k, (fn, table, args) in plain.items():
-        stats.setdefault(k, {})["plain_ms"] = device_ms(
-            lambda: fn(table, *args), reps=2, warm=1, hold_ms=0)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    C.cluster_transmittance(alpha_cl, *occ, test_count=count)
-    tests = float(count.item())
-    ms = device_ms(lambda: C.cluster_transmittance(alpha_cl, *occ))
-    tbytes = sum(a.numel() * a.element_size() for a in
-                 (cl.woop, cl.tri_idx, cl.node_box, cl.node_link))
-    b_ms, b_by = bound("cluster_transmit", n * 32 + tbytes, tests)
-    stats["cluster_transmit"].update(ms=ms, bound_ms=b_ms, bound_by=b_by,
-                                     tests_per_ray=tests / n)
-    for k, st in stats.items():
+        stats[k]["plain_ms"] = device_ms(lambda: fn(table, *args), reps=2,
+                                         warm=1, hold_ms=0)
         log(f"  {k}: {n} rays of the showcase wavefront: device ms kernel="
-            f"{st['ms']:.4f} plain={st['plain_ms']:.4f}")
-    compare_timers(cl, alpha_cl, near, occ)
-    del scene, cam, alpha_cl, near, occ
+            f"{stats[k]['ms']:.4f} plain={stats[k]['plain_ms']:.4f}")
+    compare_timers(walk_calls(cl, alpha_cl, near, occ))
+    del scene, cam, cl, alpha_cl, near, occ
 
     t0 = time.perf_counter()
     scene, cam = terrain(512, 512, nx=724, nz=724, device=dev)
     log_tables("terrain(512, 512, nx=724, nz=724)", scene,
                time.perf_counter() - t0)
-    rays = ray_set(scene, cam, 16384)
-    merge(compare_cluster_kernels("terrain", scene.clusters,
-                                  alpha_table(scene.clusters, dev), rays))
-    near, occ = capture_wavefront(scene, cam)
-    merge(compare_cluster_kernels("terrain wavefront", scene.clusters, None,
-                                  near, shadow=occ, step=4))
-    terrain_stats = time_walks("terrain wavefront", scene.clusters, near,
-                               occ)
-    return errs, stats, terrain_stats
+    cl = scene.clusters
+    alpha_cl = alpha_table(cl, dev)
+    merge(compare_cluster_kernels("terrain", cl, alpha_cl,
+                                  ray_set(scene, cam, 16384)))
+    near, occ = wavefront(scene, cam)
+    merge(compare_cluster_kernels("terrain wavefront", cl, alpha_cl, near,
+                                  shadow=occ, step=4))
+    walk_stats("terrain wavefront", cl, alpha_cl, near, occ)
+    return errs, stats
 
 
 def timed_render(scene, cam, opts, dev):
@@ -1236,7 +1172,7 @@ def main() -> int:
     errs, times, bounds = phase_kernels(dev)
     launches = phase_slice(dev)
     phase_reference(dev)
-    cl_errs, cl_stats, terrain_stats = phase_cluster_kernels(dev)
+    cl_errs, cl_stats = phase_cluster_kernels(dev)
     runs = phase_mesh_slice(dev)
     phase_mesh_references(dev)
     train = phase_train_dense(dev)
@@ -1268,9 +1204,6 @@ def main() -> int:
         "plain_ms": cl_stats[k]["plain_ms"],
         "bound_ms": cl_stats[k]["bound_ms"],
         "bound_by": cl_stats[k]["bound_by"], "library_ms": None,
-        # K5/K6: the yardstick walk over whole clusters in the same call
-        **({"prev_ms": cl_stats[k]["prev_ms"]} if "prev_ms" in cl_stats[k]
-           else {}),
     } for k in ("cluster_nearest", "cluster_anyhit", "cluster_transmit")]
     kernels.append({
         "name": KERNEL_NAMES["proto_visit"], "route": "cuda",

@@ -1,6 +1,7 @@
 """The port's BVH over the cluster tables (``ops/cluster.py::build_bvh``),
-the tree ``csrc/bvh_walk.cu`` walks for the nearest hit (K5) and the shadow
-any hit (K6), checked on the CPU where the kernel cannot run.
+the tree ``csrc/bvh_walk.cu`` walks for the nearest hit (K5), the shadow
+any hit (K6) and the alpha-shadow transmittance (K7), checked on the CPU
+where the kernel cannot run.
 
 The scenes: a 400-triangle soup, sphere_showcase's geometry at 4,236
 triangles and a flat 4,096-triangle plane (zero-thickness boxes). The
@@ -10,8 +11,13 @@ JAX package's arrays bit-equal to the port's own. The walk
 (``torch_port_util.bvh_walk``, float32 numpy in the kernel's order) is held
 to the dense plain versions exactly: t bit-equal, the plain version's row
 among the rows the walk tested, idx equal where t is unique and bu/bv where
-idx is, the any-hit masks equal at every shadow distance.
+idx is, the any-hit masks equal at every shadow distance; the
+transmittance, alphas read through the rows' virtual ids from ``woop`` and
+the walk ending at a product of 0, within rtol 1e-5 / atol 1e-6 of the
+plain version (the product is taken in walk order, not row order).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +32,8 @@ SCENES = ["soup400", "showcase4236", "plane4096"]
 N_RAYS = 192
 DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5), (1.0, -5e-5),
          (1.0, 2e-4), (1.0, -2e-4))
+ALPHAS = (0.3, 0.85, 1.0)
+FAR = 100.0         # a shadow distance past every scene
 
 
 def _verts(which):
@@ -217,3 +225,61 @@ def test_walk_any_hit_equals_the_plain_mask(table, walked):
         masks.append(want)
     masks = np.stack(masks)
     assert masks.any() and not masks.all()
+
+
+def _transmit(cl, o, d, dist):
+    """(the walk's transmittance, the plain version's) at ``dist``."""
+    got = np.array([w[0] for w in bvh_walk(
+        cl.bvh_nodes.numpy(), cl.bvh_rows.numpy(), o, d, dist,
+        transmit=(cl.bvh_virt.numpy(), cl.woop.numpy()))], np.float32)
+    want = K.cluster_transmittance_plain(cl, *_cols(o), *_cols(d),
+                                         torch.from_numpy(dist)).numpy()
+    return got, want
+
+
+def test_walk_transmittance_equals_the_plain_version(table, walked):
+    """Alphas drawn from {0.3, 0.85, 1.0} per triangle; the shadow distances
+    of the any-hit test and one past the scene."""
+    name, verts, _, _ = table
+    o, d, _, (tp, ip, _, _) = walked
+    alphas = np.random.RandomState(4).choice(ALPHAS, len(verts)) \
+        .astype(np.float32)
+    cl = TC.clusters_from_numpy(TC.build_clusters(verts, alphas=alphas),
+                                device="cpu")
+    t_ref = np.where(ip >= 0, tp, 10.0).astype(np.float32)
+    sets = [(t_ref * np.float32(f) + np.float32(off)).astype(np.float32)
+            for f, off in DISTS] + [np.full(len(o), FAR, np.float32)]
+    trans = []
+    for dist in sets:
+        got, want = _transmit(cl, o, d, dist)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        trans.append(want)
+    trans = np.stack(trans)
+    # partial and full attenuation both occur, and the exit at 0 is taken
+    assert (trans == 0.0).any() and ((trans > 0.0) & (trans < 1.0)).any()
+    assert (trans == 1.0).any()
+
+
+def test_walk_transmittance_follows_replaced_alphas(table, walked):
+    """``dataclasses.replace(clusters, woop=...)`` with new alphas: the
+    walk (which reads alpha from woop) and the plain version both follow,
+    with the BVH unchanged."""
+    _, _, _, cl = table
+    o, d, _, _ = walked
+    far = np.full(len(o), FAR, np.float32)
+    opaque, want = _transmit(cl, o, d, far)
+    np.testing.assert_array_equal(opaque, want)
+    assert set(np.unique(want)) == {0.0, 1.0}
+    woop = cl.woop.clone()
+    rows = woop.view(woop.shape[0], -1)[:, :64 * TC.WOOP_F] \
+        .view(-1, 64, TC.WOOP_F)
+    pick = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 2, rows.shape[:2]))
+    rows[..., 13] = torch.tensor([0.5, 0.25])[pick]
+    glass = dataclasses.replace(cl, woop=woop)
+    got, want = _transmit(glass, o, d, far)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    crossed = opaque == 0.0
+    assert crossed.any()
+    assert (want[crossed] > 0.0).all() and (want[crossed] < 1.0).all()
+    np.testing.assert_array_equal(want[~crossed], 1.0)

@@ -3,9 +3,9 @@ against the JAX package.
 
 On the CPU the port's ``cluster_intersect`` / ``cluster_occluded`` /
 ``cluster_transmittance`` run their plain PyTorch versions, which the CUDA
-kernels of ``csrc/bvh_walk.cu`` (nearest and any hit) and
-``csrc/cluster_walk.cu`` (transmittance) match on the card
-(chip_smoke.py); tests/test_torch_bvh.py checks the BVH they walk.
+kernels of ``csrc/bvh_walk.cu`` (nearest hit, any hit and transmittance)
+match on the card (chip_smoke.py); tests/test_torch_bvh.py checks the BVH
+they walk.
 Tolerances:
 
 - tables: the port's cluster arrays bit-equal to JAX ``build_clusters``
@@ -166,29 +166,48 @@ def test_tables_bit_equal_jax(which, alphas):
 
 @pytest.mark.parametrize("which", ["soup400", "showcase4236", "plane4096"])
 def test_tree_leaves_cover_every_real_cluster_once(which):
+    """``build_tree``'s links, and the BVH's top nodes built on them: each
+    child box holds its subtree's clusters strictly inside (padded
+    outward), flat clusters included."""
     if which == "plane4096":    # flat clusters: zero-thickness boxes
         verts = meshes.plane((0, -1, 0), (0, 0, 6), (6, 0, 0), 32, 64)
     else:
         verts = _soup_verts() if which == "soup400" else _showcase_verts()
     arrays = TC.build_clusters(verts)
-    box, link = TC.build_tree(arrays["aabb"])
-    real = np.nonzero((arrays["aabb"][:, :3] <= arrays["aabb"][:, 3:6])
-                      .all(axis=1))[0]
-    leaves = link[link[:, 0] < 0, 0]
-    np.testing.assert_array_equal(np.sort(-1 - leaves), real)
-    assert len(box) == 2 * len(real) - 1
-    # a leaf's box holds its cluster's strictly inside (padded outward),
-    # an inner node's holds its children's
-    for k, (a, b) in enumerate(link):
-        if a < 0:
-            cb = arrays["aabb"][-1 - a]
-            assert (box[k, :3] < cb[:3]).all() and \
-                (box[k, 3:6] > cb[3:6]).all(), k
-            continue
-        for kid in (box[a], box[b]):
-            assert (box[k, :3] <= kid[:3]).all() and \
-                (box[k, 3:6] >= kid[3:6]).all(), k
-    assert (box[:, 3:6] - box[:, :3] > 1e-4).all()
+    aabb = arrays["aabb"]
+    link = TC.build_tree(aabb)
+    assert link.dtype == np.int32 and link.shape[1] == 2
+    real = np.nonzero((aabb[:, :3] <= aabb[:, 3:6]).all(axis=1))[0]
+    leaf = link[:, 0] < 0
+    np.testing.assert_array_equal(np.sort(-1 - link[leaf, 0]), real)
+    np.testing.assert_array_equal(link[leaf, 1], -1)
+    assert len(link) == 2 * len(real) - 1
+    # every node but the root is some inner node's child, exactly once
+    np.testing.assert_array_equal(np.sort(link[~leaf].ravel()),
+                                  np.arange(1, len(link)))
+
+    def clusters_under(k):
+        if link[k, 0] < 0:
+            return [-1 - link[k, 0]]
+        return clusters_under(link[k, 0]) + clusters_under(link[k, 1])
+
+    # the tree's inner nodes are the BVH's first nodes, in the same order
+    nodes = TC.clusters_from_numpy(arrays, device="cpu").bvh_nodes.numpy()
+    kid_box = [nodes[:, [0, 2, 8, 1, 3, 9]], nodes[:, [4, 6, 10, 5, 7, 11]]]
+    bvh_link = nodes.view(np.int32)[:, 12:14]
+    top = np.nonzero(~leaf)[0]
+    for j, k in enumerate(top):
+        for slot in (0, 1):
+            kid = link[k, slot]
+            boxes = aabb[clusters_under(kid)]
+            box = kid_box[slot][j]
+            assert (box[:3] < boxes[:, :3].min(axis=0)).all() and \
+                (box[3:] > boxes[:, 3:6].max(axis=0)).all(), (k, slot)
+            assert (box[3:] - box[:3] > 1e-4).all()
+            if link[kid, 0] >= 0:       # an inner node of the tree
+                assert bvh_link[j, slot] == np.searchsorted(top, kid)
+            else:                       # a cluster: the root of its rows
+                assert not 0 <= bvh_link[j, slot] < len(top)
 
 
 def test_scene_from_numpy_equals_port_build():
@@ -202,7 +221,7 @@ def test_scene_from_numpy_equals_port_build():
     want = flatten(sphere_showcase(24, 20, nu=SHOWCASE_NU, nv=SHOWCASE_NV,
                                    device="cpu")[0])
     assert sorted(got) == sorted(want)
-    assert "clusters.node_box" in got
+    assert "clusters.bvh_nodes" in got
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -375,7 +394,7 @@ def _good_args(soup):
 
 @pytest.mark.parametrize("bad", [
     "float64", "2-D", "non-contiguous", "lengths", "woop-length",
-    "tri_idx-dtype", "node_link-shape", "test_count-dtype",
+    "tri_idx-dtype", "bvh_nodes-dtype", "test_count-dtype",
     "bvh_rows-length", "bvh_nodes-width", "bvh_virt-dtype",
     "bvh_virt-length"])
 def test_wrappers_reject_bad_inputs(soup, bad):
@@ -394,8 +413,8 @@ def test_wrappers_reject_bad_inputs(soup, bad):
         cl = dataclasses.replace(cl, woop=cl.woop[:-1])
     elif bad == "tri_idx-dtype":
         cl = dataclasses.replace(cl, tri_idx=cl.tri_idx.long())
-    elif bad == "node_link-shape":
-        cl = dataclasses.replace(cl, node_link=cl.node_link[:, :1])
+    elif bad == "bvh_nodes-dtype":
+        cl = dataclasses.replace(cl, bvh_nodes=cl.bvh_nodes.view(torch.int32))
     elif bad == "bvh_rows-length":
         cl = dataclasses.replace(cl, bvh_rows=cl.bvh_rows[:-1])
     elif bad == "bvh_nodes-width":

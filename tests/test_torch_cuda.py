@@ -7,11 +7,11 @@ on a machine that has only PyTorch:
 Tolerance: exact. The kernels are built with --fmad=false and compute the
 plain versions' float32 expressions in the same order (the dense kernels
 in both forms, Woop and Moller-Trumbore, and the visit-walk probe). The
-cluster kernels (the BVH walk of the nearest and any hit, the
-transmittance walk and the yardstick walk over whole clusters) visit
-triangles in another order than their plain versions, so an exact t tie
-may keep another index (bu/bv are compared where idx is equal) and the
-transmittance product differs within rtol 1e-5 / atol 1e-6.
+cluster kernels (the BVH walk of the nearest hit, the any hit and the
+transmittance) visit triangles in another order than their plain
+versions, so an exact t tie may keep another index (bu/bv are compared
+where idx is equal) and the transmittance product differs within rtol
+1e-5 / atol 1e-6.
 """
 import dataclasses
 
@@ -104,13 +104,13 @@ def _mesh(dev, n_rays=8192):
         torch.cat([torch.stack(list(d), 1), db])
 
 
-def _alpha_table(cl, dev):
-    """The clusters with every real row's alpha (slot 13) in {0.3, 0.85,
-    1.0}; the transmittance kernel reads alpha from ``woop``."""
+def _alpha_table(cl, dev, alphas=(0.3, 0.85, 1.0)):
+    """The clusters with every real row's alpha (slot 13) taken in turn
+    from ``alphas``; the transmittance kernel reads alpha from ``woop``."""
     alpha = cl.woop.clone()
     rows = alpha.view(alpha.shape[0], -1)[:, :64 * 14].view(-1, 64, 14)
-    rows[..., 13] = torch.tensor([0.3, 0.85, 1.0], device=dev)[
-        torch.arange(rows.shape[1], device=dev) % 3]
+    rows[..., 13] = torch.tensor(alphas, device=dev)[
+        torch.arange(rows.shape[1], device=dev) % len(alphas)]
     return dataclasses.replace(cl, woop=alpha)
 
 
@@ -127,8 +127,8 @@ def _nearest_equal(got, want):
 
 
 def test_cluster_kernels_equal_plain_versions(dev):
-    """The BVH walk (K5/K6), the transmittance walk (K7) and the yardstick
-    walk over whole clusters against the plain versions."""
+    """The BVH walk's three modes (K5, K6, K7) against the plain
+    versions."""
     scene, o, d = _mesh(dev)
     cl = scene.clusters
     rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
@@ -136,7 +136,6 @@ def test_cluster_kernels_equal_plain_versions(dev):
     want = C.cluster_intersect_plain(cl, *rays)
     assert bool((want[1] >= 0).any())
     _nearest_equal(C.cluster_intersect(cl, *rays), want)
-    _nearest_equal(C.cluster_walk_intersect(cl, *rays), want)
     cl_alpha = _alpha_table(cl, dev)
     t_ref = torch.where(want[1] >= 0, want[0], 10.0)
     for scale, off in ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
@@ -145,17 +144,37 @@ def test_cluster_kernels_equal_plain_versions(dev):
         blocked = C.cluster_occluded_plain(cl, *rays, dist)
         torch.testing.assert_close(C.cluster_occluded(cl, *rays, dist),
                                    blocked)
-        torch.testing.assert_close(C.cluster_walk_occluded(cl, *rays, dist),
-                                   blocked)
         torch.testing.assert_close(
             C.cluster_transmittance(cl_alpha, *rays, dist),
             C.cluster_transmittance_plain(cl_alpha, *rays, dist),
             rtol=1e-5, atol=1e-6)
     got = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
     want_launches = dict.fromkeys(K.LAUNCHES, 0)
-    want_launches.update(cluster_nearest=1, walk_nearest=1,
-                         cluster_anyhit=5, walk_anyhit=5, cluster_transmit=5)
+    want_launches.update(cluster_nearest=1, cluster_anyhit=5,
+                         cluster_transmit=5)
     assert got == want_launches
+
+
+@pytest.mark.parametrize("alphas", [(0.3, 0.85, 1.0), (1.0,), (0.5, 0.25)],
+                         ids=["mixed", "opaque", "no-zero"])
+def test_transmit_kernel_equal_plain_version(dev, alphas):
+    """K7 against its plain version on alpha tables; where every alpha is
+    1 the first crossing ends the walk (the product-0 exit)."""
+    scene, o, d = _mesh(dev)
+    cl = _alpha_table(scene.clusters, dev, alphas)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    for dist in (torch.full_like(rays[0], 100.0),
+                 torch.full_like(rays[0], 2.0)):
+        got = C.cluster_transmittance(cl, *rays, dist)
+        want = C.cluster_transmittance_plain(cl, *rays, dist)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        assert bool((want < 1.0).any())
+        if alphas == (1.0,):
+            # every crossing ends the walk at 0: the product is exact
+            assert bool(((want == 0.0) | (want == 1.0)).all())
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if alphas == (0.5, 0.25):
+            assert bool((got > 0.0).all())
 
 
 def test_cluster_test_count(dev):
@@ -163,9 +182,10 @@ def test_cluster_test_count(dev):
     rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
     n = o.shape[0]
     dense = n * scene.n_tris
+    far = torch.full_like(rays[0], 4.0)
     for fn, args in ((C.cluster_intersect, rays),
-                     (C.cluster_occluded, rays + [torch.full_like(rays[0],
-                                                                  4.0)])):
+                     (C.cluster_occluded, rays + [far]),
+                     (C.cluster_transmittance, rays + [far])):
         tests = torch.zeros(1, dtype=torch.int64, device=dev)
         nodes = torch.zeros_like(tests)
         fn(scene.clusters, *args, test_count=tests, node_count=nodes)
@@ -173,9 +193,6 @@ def test_cluster_test_count(dev):
         # n x 4,236 tests, at least one of each
         assert 0 < int(tests) < dense
         assert 0 < int(nodes) < dense
-    walk = torch.zeros(1, dtype=torch.int64, device=dev)
-    C.cluster_walk_intersect(scene.clusters, *rays, test_count=walk)
-    assert 0 < int(walk) < dense
 
 
 @pytest.mark.parametrize("opts,nearest,shadow", [
@@ -197,7 +214,7 @@ def test_mesh_render_goes_through_the_cluster_kernels(dev, opts, nearest,
 
 
 def test_cluster_wrapper_raises_on_a_wrong_length_table(dev):
-    """A table whose BVH rows (K5/K6) or Woop rows (K7, the yardstick) are
+    """A table whose BVH rows (K5/K6/K7) or Woop rows (K7's alphas) are
     cut short raises before any launch."""
     scene, o, d = _mesh(dev, n_rays=64)
     rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
@@ -212,9 +229,9 @@ def test_cluster_wrapper_raises_on_a_wrong_length_table(dev):
     with pytest.raises(ValueError):
         C.cluster_occluded(short_rows, *rays, dist)
     with pytest.raises(ValueError):
-        C.cluster_transmittance(short_woop, *rays, dist)
+        C.cluster_transmittance(short_rows, *rays, dist)
     with pytest.raises(ValueError):
-        C.cluster_walk_intersect(short_woop, *rays)
+        C.cluster_transmittance(short_woop, *rays, dist)
     assert K.LAUNCHES == before
 
 
@@ -236,6 +253,33 @@ def test_mt_kernels_equal_plain_versions(dev, which):
             K.tri_occluded_mt_plain(table, *rays, dist))
     assert K.LAUNCHES["mt_nearest"] == before["mt_nearest"] + 1
     assert K.LAUNCHES["mt_anyhit"] == before["mt_anyhit"] + 3
+
+
+@pytest.mark.parametrize("n_tris", [12, 300])
+@pytest.mark.parametrize("n_rays", [1, 255, 257, 1001])
+def test_mt_nearest_ragged_edges(dev, n_rays, n_tris):
+    """K3 traces two rays per thread, 512 per block, against tiles of 256
+    triangles: ray counts below, around and off a block, and a table with
+    a partial second tile, bit-equal to the plain version."""
+    scene, o, d = _soup(dev, n_tris=n_tris, n_rays=n_rays)
+    table = K.pack_triangles(scene)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    got = K.tri_intersect_mt(table, *rays)
+    want = K.tri_intersect_mt_plain(table, *rays)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_mt_nearest_refuses_an_unaligned_table(dev):
+    scene, o, d = _soup(dev, n_tris=12, n_rays=64)
+    base = K.pack_triangles(scene)
+    table = torch.cat([base.new_zeros(1), base])[1:]
+    assert table.data_ptr() % 16 == 4
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.tri_intersect_mt(table, *rays)
+    assert K.LAUNCHES == before
 
 
 def _fwd_bwd(scene, cam, opts):

@@ -259,3 +259,19 @@ def test_mt_wrapper_rejects_bad_inputs(bad):
         K.tri_intersect_mt(table, *rays)
     with pytest.raises(ValueError):
         K.tri_occluded_mt(table, *rays, torch.zeros(rays[0].shape[0]))
+
+
+def test_mt_nearest_refuses_an_unaligned_table():
+    """K3 reads its table as float4: a view at a 1-float offset is refused
+    on every device; an aligned copy is taken, and K4 (scalar reads) takes
+    the view."""
+    base = torch.zeros(12 * 2 + 1)
+    table = base[1:]
+    assert base.data_ptr() % 16 == 0 and table.is_contiguous()
+    assert table.data_ptr() % 16 == 4
+    rays = [torch.zeros(8) for _ in range(6)]
+    with pytest.raises(ValueError, match="16-byte"):
+        K.tri_intersect_mt(table, *rays)
+    t, idx, _, _ = K.tri_intersect_mt(table.clone(), *rays)
+    assert (idx == -1).all() and (t == np.float32(3.4e38)).all()
+    assert not K.tri_occluded_mt(table, *rays, torch.ones(8)).any()

@@ -20,8 +20,8 @@
   the scene, camera, image and gradient leaves in one ``.npz``), and
   ``jax_grad_case`` computes one with the JAX package;
 - ``bvh_walk`` walks the port's BVH (``Clusters.bvh_*``) one ray at a time
-  in float32 numpy, as ``csrc/bvh_walk.cu`` walks it, so the CPU tests
-  check the tree where the kernel cannot run.
+  in float32 numpy, as ``csrc/bvh_walk.cu`` walks it in each of its three
+  modes, so the CPU tests check the tree where the kernel cannot run.
 """
 from __future__ import annotations
 
@@ -255,26 +255,36 @@ def _woop_test(row, o, d):
     return t, u, v, bool(ok)
 
 
-def bvh_walk(nodes, rows, o, d, dist=None, leaf_bits: int = 4):
+def bvh_walk(nodes, rows, o, d, dist=None, leaf_bits: int = 4,
+             transmit=None):
     """Walk the BVH (``nodes [K, 16]`` f32, ``rows [R, 12]`` f32, numpy)
     for each ray (``o``, ``d`` [N, 3] f32): nearer child first and pruned
-    by the best t for the nearest hit, or, with ``dist`` [N], the any hit
-    within dist with the endpoint guard. Returns (t, row, bu, bv, tested)
-    per ray for the nearest hit (row -1 on a miss; tested: the set of rows
-    the walk tested), or (blocked, tested) for the any hit."""
+    by the best t for the nearest hit; with ``dist`` [N], in link order and
+    pruned by dist, the any hit within dist with the endpoint guard, or,
+    given ``transmit = (virt [R] i32, woop [C, 8, 128] f32)``, the product
+    of (1 - alpha) over the crossings with t < dist in walk order, alpha
+    read through each row's virtual id from woop's slot 13, the walk ending
+    when the product is 0. Returns (t, row, bu, bv, tested) per ray for the
+    nearest hit (row -1 on a miss; tested: the set of rows the walk
+    tested), (blocked, tested) for the any hit, or (trans, tested)."""
     f = np.float32
     boxes = nodes[:, :12]
     links = nodes.view(np.int32)[:, 12:14]
     # child boxes as lo(3), hi(3)
     kid = [boxes[:, [0, 2, 8, 1, 3, 9]], boxes[:, [4, 6, 10, 5, 7, 11]]]
+    if transmit is not None:
+        virt, woop = transmit
+        flat = woop.reshape(len(woop), -1)
+        alpha = flat[virt // 64, virt % 64 * 14 + 13]
     out = []
     for i in range(len(o)):
         oi, di = o[i].astype(f), d[i].astype(f)
         inv = np.array([f(1.0) / (c if c != 0 else f(1e-30)) for c in di], f)
         bound = f(3.4e38) if dist is None else f(dist[i])
-        t_best, best, bu, bv, blocked = f(3.4e38), -1, f(0), f(0), False
+        t_best, best, bu, bv, stop = f(3.4e38), -1, f(0), f(0), False
+        trans = f(1.0)
         tested, stack, node = set(), [], 0
-        while node is not None and not blocked:
+        while node is not None and not stop:
             if node >= 0:
                 hits = [_slab(kid[c][node], oi, inv, bound) for c in (0, 1)]
                 a, b = (int(x) for x in links[node])
@@ -294,15 +304,23 @@ def bvh_walk(nodes, rows, o, d, dist=None, leaf_bits: int = 4):
                 t, u, v, ok = _woop_test(rows[r], oi, di)
                 if not ok:
                     continue
-                if dist is None and t < t_best:
-                    t_best, best, bu, bv = t, r, u, v
-                elif dist is not None and t < bound and \
-                        abs(t - bound) >= f(1e-4):
-                    blocked = True
-                    break
+                if dist is None:
+                    if t < t_best:
+                        t_best, best, bu, bv = t, r, u, v
+                elif transmit is None:
+                    if t < bound and abs(t - bound) >= f(1e-4):
+                        stop = True
+                        break
+                elif t < bound:
+                    trans = f(trans * (f(1.0) - alpha[r]))
+                    if trans == 0.0:
+                        stop = True
+                        break
             if dist is None:
                 bound = t_best
             node = stack.pop() if stack else None
-        out.append((blocked, tested) if dist is not None else
-                   (t_best, best, bu, bv, tested))
+        if dist is None:
+            out.append((t_best, best, bu, bv, tested))
+        else:
+            out.append((stop if transmit is None else trans, tested))
     return out

@@ -1,17 +1,20 @@
-// Mesh-scale nearest hit and shadow any hit on Hopper: a while-while walk
-// (Aila & Laine 2009) of a BVH with small leaves, both child boxes stored
-// in each node, and 16-byte triangle rows.
+// Mesh-scale nearest hit, shadow any hit and alpha-shadow transmittance on
+// Hopper: a while-while walk (Aila & Laine 2009) of a BVH with small
+// leaves, both child boxes stored in each node, and 16-byte triangle rows.
 //
-// Replaces two Pallas TPU walk kernels of tuturenderer_tpu/ops/pallas/
-// cluster.py: _kernel_nearest (K5) and _kernel_anyhit (K6), bodies of
-// _walk_kernel. The TPU kernel reduces a 1024-ray tile to a beam, walks a
-// sorted per-tile visit list of 64-triangle clusters staged into SMEM, and
-// exits at a tile-wide limit. What is kept is what they compute:
+// Replaces the three Pallas TPU walk kernels of tuturenderer_tpu/ops/
+// pallas/cluster.py: _kernel_nearest (K5), _kernel_anyhit (K6) and
+// _kernel_transmit (K7), bodies of _walk_kernel. The TPU kernel reduces a
+// 1024-ray tile to a beam, walks a sorted per-tile visit list of
+// 64-triangle clusters staged into SMEM, and exits at a tile-wide limit.
+// What is kept is what they compute:
 //
 //   K5: the nearest t with |w_d| >= 1e-4, t > 0, u > 0, v > 0,
 //       1 - u - v > 0 over every triangle of the table, and its original
 //       triangle id (tri_idx), -1 on a miss (ops/pallas/cluster.py:269-283);
-//   K6: any such hit with t < dist and |t - dist| >= 1e-4 (BVH.hpp:184).
+//   K6: any such hit with t < dist and |t - dist| >= 1e-4 (BVH.hpp:184);
+//   K7: the product of (1 - alpha) over every such hit with t < dist, no
+//       endpoint guard (cluster.py:473-491); alpha is Woop slot 13.
 //
 // Tables (ops/cluster.py build_bvh): nodes [K, 16] f32, 64 bytes per inner
 // node read as 4 float4: both children's padded boxes
@@ -22,34 +25,42 @@
 // rows [R, 12] f32: r1 c1 | r2 c2 | r3' c3' of the Woop rows (r3/c3
 // prescaled by |n|, so w_d = d . r3' is dir . n_hat), 3 float4 per
 // triangle, a leaf's rows contiguous; virt [R] i32 the virtual id
-// (cluster * 64 + slot) mapped through tri_idx [C * 64] to the triangle.
+// (cluster * 64 + slot), mapped through tri_idx [C * 64] to the triangle
+// (K5) and to the row's alpha in woop [C, 1024] f32 (K7): woop[virt / 64]
+// [virt % 64 * 14 + 13]. K7 reads alpha there, on accepted crossings only,
+// so a table whose woop was replaced (new alphas) needs no new BVH.
 //
 // Walk: one thread per ray. Each iteration runs the node phase until every
 // lane of the warp holds a leaf or is done (__any_sync), then the leaf
 // phase. A node visit loads one 64-byte node and slab-tests both children
 // with the JAX gate (cluster.py:374-393, 1 / (c == 0 ? 1e-30 : c)):
 // tmin <= tmax, tmax >= 0 and tmin < bound. K5 goes to the nearer child,
-// pushes the farther and prunes by the best t so far; K6 needs no order
-// and leaves at its first accepted hit. The stack holds links. The boxes
-// are padded outward on the host (1e-4 absolute + 1e-5 relative), so the
-// slab test's rounding never culls a hit that the dense test accepts.
+// pushes the farther and prunes by the best t so far; K6 and K7 need no
+// order and prune by dist. K6 leaves at its first accepted hit, K7 when its
+// product is exactly 0 (an alpha-1 crossing): every later factor is finite
+// and >= 0, so the result is the one walking on would give. Each real row
+// lies in exactly one leaf, so no crossing is counted twice. The stack
+// holds links. The boxes are padded outward on the host (1e-4 absolute +
+// 1e-5 relative), so the slab test's rounding never culls a hit that the
+// dense test accepts.
 //
 // Agreement: built with --fmad=false, the triangle test rounds every step
 // as the plain PyTorch versions do (ops/cuda/cluster.py), so t and the
 // barycentrics are bit-equal to theirs and the K6 masks equal. The visiting
 // order differs from their row order, so an exact t tie may keep another
-// index.
+// index, and K7's product is taken in another order (rtol 1e-5).
 //
 // What bounds it: per ray it reads 24 bytes (28 with dist) and writes 16
-// (4), and the tables once; ~30 flops per ray/triangle test and ~40 per
-// node visit (two slab tests). At the main path's ~6 tests and ~21 node
-// visits per ray the bytes bound it (chip_smoke.py prints both bounds).
-// The design cuts the work per ray (leaves of 4 rows instead of 64-row
-// clusters), loads each node and row as whole float4s with no dependent
-// load before a box test, and keeps the leaf work out of the node loop.
-// What holds it far above the bound is latency: each node load depends on
-// the last, and a warp lasts as long as its longest ray (chip_smoke.py
-// phase 6 times 8,192-ray slices of a wavefront alone against the whole).
+// (K5) or 4, and the tables once; ~30 flops per ray/triangle test and ~40
+// per node visit (two slab tests). At the main path's ~6 tests and ~21
+// node visits per ray (K5; K6 and K7 fewer) the bytes bound it
+// (chip_smoke.py prints both bounds). The design cuts the work per ray
+// (leaves of 4 rows instead of 64-row clusters), loads each node and row as
+// whole float4s with no dependent load before a box test, and keeps the
+// leaf work out of the node loop. What holds it far above the bound is
+// latency: each node load depends on the last, and a warp lasts as long as
+// its longest ray (chip_smoke.py phase 6 times 8,192-ray slices of a
+// wavefront alone against the whole).
 //
 // `tests` and `nodes` (may be null) count the ray/triangle tests and the
 // node visits made, one atomic add each per thread: diagnostics for the
@@ -58,6 +69,7 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstddef>
 
 namespace {
 
@@ -68,8 +80,12 @@ constexpr int kBlock = 128;
 constexpr int kLeafBits = 4;            // ops/cluster.py LEAF_BITS
 constexpr int kDone = INT_MIN;          // no node left
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kClusterSize = 64;        // ops/cluster.py CLUSTER_SIZE
+constexpr int kClusterFloats = 8 * 128; // woop floats per cluster
+constexpr int kWoopF = 14;              // ops/cluster.py WOOP_F
+constexpr int kAlphaSlot = 13;
 
-enum Mode { kNearest = 0, kAnyHit = 1 };
+enum Mode { kNearest = 0, kAnyHit = 1, kTransmit = 2 };
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -103,7 +119,7 @@ struct TriHit {
 };
 
 // The 12-value test of cluster.py:269-283 on one row of 3 float4, in the
-// order of operations of cluster_walk.cu's woop_test.
+// order of operations of the plain versions' _test_tile.
 __device__ __forceinline__ TriHit woop_test(const float4* __restrict__ row,
                                             const Ray& r) {
   const float4 a = __ldg(row);        // r1 c1
@@ -132,7 +148,8 @@ struct Tables {
   const float4* nodes;
   const float4* rows;
   const int* virt;
-  const int* tri_idx;
+  const int* tri_idx;   // K5
+  const float* woop;    // K7: alpha in slot 13
 };
 
 struct Rays {
@@ -145,6 +162,7 @@ struct Outputs {
   float* bu;
   float* bv;
   int* hit;
+  float* trans;
   unsigned long long* tests;
   unsigned long long* nodes;
 };
@@ -168,12 +186,13 @@ bvh_walk_kernel(Tables tab, Rays rays, int n, Outputs out) {
     r.ix = inv_dir(r.dx);
     r.iy = inv_dir(r.dy);
     r.iz = inv_dir(r.dz);
-    if (kMode == kAnyHit) rdist = rays.dist[i];
+    if (kMode != kNearest) rdist = rays.dist[i];
     node = 0;
   }
   float bound = rdist;
-  float t_best = kF32Max, bu = 0.0f, bv = 0.0f;
-  int best = -1, blocked = 0;
+  float t_best = kF32Max, bu = 0.0f, bv = 0.0f, trans = 1.0f;
+  int best = -1;
+  int stop = 0;           // K6: blocked; K7: the product is 0
   int stack[kStack];
   int sp = 0;
   unsigned n_tests = 0, n_nodes = 0;
@@ -192,7 +211,7 @@ bvh_walk_kernel(Tables tab, Rays rays, int n, Outputs out) {
       const bool ha = slab(xa.x, xa.y, xa.z, xa.w, z.x, z.y, r, bound, &ea);
       const bool hb = slab(xb.x, xb.y, xb.z, xb.w, z.z, z.w, r, bound, &eb);
       if (ha && hb) {
-        const bool a_first = kMode == kAnyHit || ea <= eb;
+        const bool a_first = kMode != kNearest || ea <= eb;
         stack[sp++] = a_first ? link.y : link.x;
         node = a_first ? link.x : link.y;
       } else if (ha) {
@@ -219,14 +238,26 @@ bvh_walk_kernel(Tables tab, Rays rays, int n, Outputs out) {
           bu = h.u;
           bv = h.v;
         }
-      } else if (h.t < rdist && fabsf(h.t - rdist) >= kParallelEps) {
+      } else if (kMode == kAnyHit) {
         // t < dist with the FLOAT_EQUAL endpoint guard (BVH.hpp:184)
-        blocked = 1;
-        break;
+        if (h.t < rdist && fabsf(h.t - rdist) >= kParallelEps) {
+          stop = 1;
+          break;
+        }
+      } else if (h.t < rdist) {
+        const int v = __ldg(tab.virt + first + k);
+        trans *= 1.0f - __ldg(tab.woop +
+                              static_cast<size_t>(v / kClusterSize) *
+                                  kClusterFloats +
+                              (v % kClusterSize) * kWoopF + kAlphaSlot);
+        if (trans == 0.0f) {
+          stop = 1;
+          break;
+        }
       }
     }
     if (kMode == kNearest) bound = t_best;
-    node = blocked || sp == 0 ? kDone : stack[--sp];
+    node = stop || sp == 0 ? kDone : stack[--sp];
   }
   if (i < n) {
     if (kMode == kNearest) {
@@ -235,8 +266,10 @@ bvh_walk_kernel(Tables tab, Rays rays, int n, Outputs out) {
                              : -1;
       out.bu[i] = bu;
       out.bv[i] = bv;
+    } else if (kMode == kAnyHit) {
+      out.hit[i] = stop;
     } else {
-      out.hit[i] = blocked;
+      out.trans[i] = trans;
     }
   }
   if (out.tests != nullptr) atomicAdd(out.tests, n_tests);
@@ -264,9 +297,10 @@ extern "C" int bvh_nearest(const float* nodes, const float* rows,
                            float* bv_out, unsigned long long* tests,
                            unsigned long long* node_visits, void* stream) {
   const Tables tab{reinterpret_cast<const float4*>(nodes),
-                   reinterpret_cast<const float4*>(rows), virt, tri_idx};
+                   reinterpret_cast<const float4*>(rows), virt, tri_idx,
+                   nullptr};
   const Rays rays{ox, oy, oz, dx, dy, dz, nullptr};
-  const Outputs out{t_out, idx_out, bu_out, bv_out, nullptr, tests,
+  const Outputs out{t_out, idx_out, bu_out, bv_out, nullptr, nullptr, tests,
                     node_visits};
   return launch<kNearest>(tab, rays, n, out, stream);
 }
@@ -279,9 +313,26 @@ extern "C" int bvh_anyhit(const float* nodes, const float* rows,
                           unsigned long long* tests,
                           unsigned long long* node_visits, void* stream) {
   const Tables tab{reinterpret_cast<const float4*>(nodes),
-                   reinterpret_cast<const float4*>(rows), virt, tri_idx};
+                   reinterpret_cast<const float4*>(rows), virt, tri_idx,
+                   nullptr};
   const Rays rays{ox, oy, oz, dx, dy, dz, dist};
-  const Outputs out{nullptr, nullptr, nullptr, nullptr, hit_out, tests,
-                    node_visits};
+  const Outputs out{nullptr, nullptr, nullptr, nullptr, hit_out, nullptr,
+                    tests, node_visits};
   return launch<kAnyHit>(tab, rays, n, out, stream);
+}
+
+extern "C" int bvh_transmit(const float* nodes, const float* rows,
+                            const int* virt, const float* woop,
+                            const float* ox, const float* oy, const float* oz,
+                            const float* dx, const float* dy, const float* dz,
+                            const float* dist, int n, float* trans_out,
+                            unsigned long long* tests,
+                            unsigned long long* node_visits, void* stream) {
+  const Tables tab{reinterpret_cast<const float4*>(nodes),
+                   reinterpret_cast<const float4*>(rows), virt, nullptr,
+                   woop};
+  const Rays rays{ox, oy, oz, dx, dy, dz, dist};
+  const Outputs out{nullptr, nullptr, nullptr, nullptr, nullptr, trans_out,
+                    tests, node_visits};
+  return launch<kTransmit>(tab, rays, n, out, stream);
 }

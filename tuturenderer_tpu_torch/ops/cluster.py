@@ -13,25 +13,21 @@ built here is bit-equal to the JAX package's:
   ids, -1 in the padding;
 - C is padded to a multiple of ``C_ALIGN`` = 1024 with inverted boxes.
 
-On top, the port keeps two trees, both built from the five JAX arrays (so
-tables imported from the JAX package get them too):
-
-- a binary tree over the real clusters' boxes, the per-ray walk of
-  ``csrc/cluster_walk.cu`` (the transmittance kernel): ``node_box [K, 8]``
-  (lo(3), hi(3), 2 pad) and ``node_link [K, 2]`` int32, the two child node
-  ids of an inner node, or ``(-1 - cluster, -1)`` for a leaf; node 0 is the
-  root;
-- a BVH with small leaves for ``csrc/bvh_walk.cu`` (nearest and any hit):
-  the cluster tree's inner nodes on top, and below each cluster a median
-  split of its real rows down to leaves of at most ``BVH_LEAF`` rows.
-  ``bvh_nodes [K', 16]`` float32, 64 bytes per inner node: both children's
-  boxes as ``a.lo.x a.hi.x a.lo.y a.hi.y | b.lo.x b.hi.x b.lo.y b.hi.y |
-  a.lo.z a.hi.z b.lo.z b.hi.z`` and, as int32 bits, ``link a, link b, 0,
-  0``; a link >= 0 is an inner node, a link < 0 a leaf of rows ``first ..
-  first + count`` with ``-1 - link = first << 4 | count``; node 0 is the
-  root. ``bvh_rows [R, 12]`` float32 holds the real rows' first 12 Woop
-  floats (r1 c1 | r2 c2 | r3' c3', 48 bytes) in leaf order, bit for bit,
-  and ``bvh_virt [R]`` int32 their virtual ids (cluster * 64 + slot).
+On top, the port keeps a BVH with small leaves, built from the five JAX
+arrays (so tables imported from the JAX package get it too), which
+``csrc/bvh_walk.cu`` walks for the nearest hit, the any hit and the
+transmittance: a binary tree over the real clusters' boxes on top
+(``build_tree``), and below each cluster a median split of its real rows
+down to leaves of at most ``BVH_LEAF`` rows. ``bvh_nodes [K, 16]`` float32,
+64 bytes per inner node: both children's boxes as ``a.lo.x a.hi.x a.lo.y
+a.hi.y | b.lo.x b.hi.x b.lo.y b.hi.y | a.lo.z a.hi.z b.lo.z b.hi.z`` and,
+as int32 bits, ``link a, link b, 0, 0``; a link >= 0 is an inner node, a
+link < 0 a leaf of rows ``first .. first + count`` with ``-1 - link = first
+<< 4 | count``; node 0 is the root. ``bvh_rows [R, 12]`` float32 holds the
+real rows' first 12 Woop floats (r1 c1 | r2 c2 | r3' c3', 48 bytes) in leaf
+order, bit for bit, and ``bvh_virt [R]`` int32 their virtual ids (cluster
+* 64 + slot); the transmittance reads a row's alpha through its virtual id
+from ``woop``.
 
 Every box is padded outward by ``1e-5 * max(|lo|, |hi|) + 1e-4`` per axis,
 the margin of the JAX visit lists (cluster.py:237-252): a ray's slab test
@@ -52,7 +48,6 @@ from ..utils.device import DEFAULT_DEVICE, resolve
 CLUSTER_SIZE = 64
 WOOP_F = 14             # floats per triangle row: 12 + |n| + alpha
 C_ALIGN = 1024          # cluster count padding of the JAX layout
-TREE_STACK = 64         # traversal stack of csrc/cluster_walk.cu (kStack)
 BVH_LEAF = 4            # rows per BVH leaf at most
 BVH_STACK = 32          # traversal stack of csrc/bvh_walk.cu (kStack)
 NODE_F = 16             # floats per BVH node: 4 float4
@@ -64,19 +59,17 @@ LEAF_BITS = 4           # -1 - leaf link = first row << LEAF_BITS | count
 class Clusters:
     """The cluster tables on one device. The BVH rows are copied from
     ``woop`` when the tables are built: ``dataclasses.replace(clusters,
-    woop=...)`` leaves ``bvh_rows`` as it was (the transmittance kernel,
-    which reads alpha from ``woop``, is the only reader of a replaced
-    ``woop``). ``n_real``, the number of real rows in ``tri_idx``, is
-    counted on construction (not a field), so the kernels' wrappers can
-    hold ``bvh_virt`` to it without reading the device."""
+    woop=...)`` leaves ``bvh_rows`` as it was, so it may change the alphas
+    (slot 13, which the transmittance kernel reads from ``woop``) and
+    nothing the BVH holds. ``n_real``, the number of real rows in
+    ``tri_idx``, is counted on construction (not a field), so the kernels'
+    wrappers can hold ``bvh_virt`` to it without reading the device."""
     aabb: torch.Tensor       # [C, 8] f32: min(3), max(3), 2 pad
     woop: torch.Tensor       # [C, 8, 128] f32: CLUSTER_SIZE * WOOP_F + pad
     tri_idx: torch.Tensor    # [C, CLUSTER_SIZE] i32 original ids, -1 pad
     scene_lo: torch.Tensor   # [3] f32
     scene_hi: torch.Tensor   # [3] f32
-    node_box: torch.Tensor   # [K, 8] f32 padded lo(3), hi(3), 2 pad
-    node_link: torch.Tensor  # [K, 2] i32 children, or (-1 - cluster, -1)
-    bvh_nodes: torch.Tensor  # [K', NODE_F] f32: child boxes, links (i32)
+    bvh_nodes: torch.Tensor  # [K, NODE_F] f32: child boxes, links (i32)
     bvh_rows: torch.Tensor   # [R, ROW_F] f32 Woop rows in leaf order
     bvh_virt: torch.Tensor   # [R] i32 virtual id of each row
 
@@ -177,45 +170,38 @@ def _padded(lo: np.ndarray, hi: np.ndarray):
     return lo32, hi32
 
 
-def build_tree(aabb: np.ndarray):
+def build_tree(aabb: np.ndarray) -> np.ndarray:
     """Binary tree over the real clusters of ``aabb [C, 8]`` (rows with
     min <= max; the padding's inverted boxes are skipped): a median split on
     the longest axis of the node's box, by cluster centroid. Returns
-    (node_box [K, 8] f32, node_link [K, 2] i32) in depth-first order."""
+    ``node_link [K, 2]`` int32 in depth-first order, the two child node ids
+    of an inner node, or ``(-1 - cluster, -1)`` for a leaf; node 0 is the
+    root. ``build_bvh`` puts its inner nodes on top of the BVH."""
     lo = aabb[:, :3]
     hi = aabb[:, 3:6]
     real = np.nonzero((lo <= hi).all(axis=1))[0]
     if len(real) == 0:
         raise ValueError("cluster table has no real cluster")
     centroid = 0.5 * (lo.astype(np.float64) + hi.astype(np.float64))
-    boxes, links = [], []
-    stack = [(real, -1, 0, 0)]          # (cluster ids, parent, slot, depth)
-    max_depth = 0
+    links = []
+    stack = [(real, -1, 0)]             # (cluster ids, parent, slot)
     while stack:
-        ids, parent, slot, depth = stack.pop()
-        k = len(boxes)
+        ids, parent, slot = stack.pop()
+        k = len(links)
         if parent >= 0:
             links[parent][slot] = k
-        max_depth = max(max_depth, depth)
-        blo = lo[ids].min(axis=0)
-        bhi = hi[ids].max(axis=0)
-        plo, phi = _padded(blo, bhi)
-        boxes.append(np.concatenate([plo, phi, np.zeros(2, np.float32)]))
         if len(ids) == 1:
             links.append([-1 - int(ids[0]), -1])
             continue
         links.append([0, 0])
+        blo = lo[ids].min(axis=0)
+        bhi = hi[ids].max(axis=0)
         axis = int(np.argmax(bhi.astype(np.float64) - blo))
         srt = ids[np.argsort(centroid[ids, axis], kind="stable")]
         mid = len(srt) // 2
-        stack.append((srt[mid:], k, 1, depth + 1))
-        stack.append((srt[:mid], k, 0, depth + 1))
-    # a depth-first walk that pushes both children holds at most depth + 1
-    if max_depth + 1 >= TREE_STACK:
-        raise ValueError(f"cluster tree depth {max_depth} exceeds the "
-                         f"traversal stack of {TREE_STACK}")
-    return (np.stack(boxes).astype(np.float32),
-            np.asarray(links, np.int32).reshape(-1, 2))
+        stack.append((srt[mid:], k, 1))
+        stack.append((srt[:mid], k, 0))
+    return np.asarray(links, np.int32).reshape(-1, 2)
 
 
 def real_woop_rows(woop: np.ndarray, tri_idx: np.ndarray):
@@ -252,7 +238,7 @@ def _seg_reduce(ufunc, vals: np.ndarray, starts: np.ndarray,
     return ufunc.reduceat(np.concatenate([vals, vals[:1]]), idx, axis=0)[::2]
 
 
-def _node_boxes(lo_a, hi_a, lo_b, hi_b) -> np.ndarray:
+def _child_boxes(lo_a, hi_a, lo_b, hi_b) -> np.ndarray:
     """[n, 12] float32 box floats of inner nodes from their two children's
     bounds (float64 [n, 3] each), padded outward."""
     (la, ha), (lb, hb) = _padded(lo_a, hi_a), _padded(lo_b, hi_b)
@@ -301,8 +287,8 @@ def _split_clusters(lo, hi, c_start, c_size, first_id: int):
         kid_size = np.stack([mid, size - mid], axis=1).ravel()
         k_lo = _seg_reduce(np.minimum, lo[order], kid_start, kid_size)
         k_hi = _seg_reduce(np.maximum, hi[order], kid_start, kid_size)
-        boxes.append(_node_boxes(k_lo[0::2], k_hi[0::2], k_lo[1::2],
-                                 k_hi[1::2]))
+        boxes.append(_child_boxes(k_lo[0::2], k_hi[0::2], k_lo[1::2],
+                                  k_hi[1::2]))
         links.append(np.zeros((len(start), 2), np.int64))
         ids = np.arange(n_nodes, n_nodes + len(start))
         n_nodes += len(start)
@@ -322,7 +308,7 @@ def _levels(node_link: np.ndarray) -> list:
 
 def build_bvh(aabb: np.ndarray, woop: np.ndarray, tri_idx: np.ndarray,
               node_link: np.ndarray):
-    """The BVH of the module docstring -> (bvh_nodes [K', 16] f32,
+    """The BVH of the module docstring -> (bvh_nodes [K, 16] f32,
     bvh_rows [R, 12] f32, bvh_virt [R] i32, depth in inner nodes, the most
     a walk's stack holds).
 
@@ -377,11 +363,11 @@ def build_bvh(aabb: np.ndarray, woop: np.ndarray, tri_idx: np.ndarray,
     if not len(top) and root[0] < 0:
         # one cluster of at most ``BVH_LEAF`` rows: a root over it and an
         # empty leaf (count 0)
-        top_boxes = _node_boxes(c_lo, c_hi, c_lo, c_hi)
+        top_boxes = _child_boxes(c_lo, c_hi, c_lo, c_hi)
         top_links = np.array([[root[0], -1]])
     else:
         a, b = node_link[top, 0], node_link[top, 1]
-        top_boxes = _node_boxes(t_lo[a], t_hi[a], t_lo[b], t_hi[b])
+        top_boxes = _child_boxes(t_lo[a], t_hi[a], t_lo[b], t_hi[b])
         top_links = np.stack([t_link[a], t_link[b]], axis=1)
     nodes = np.zeros((len(top_boxes) + sum(len(x) for x in boxes), NODE_F),
                      np.float32)
@@ -398,16 +384,14 @@ def build_bvh(aabb: np.ndarray, woop: np.ndarray, tri_idx: np.ndarray,
 def clusters_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> Clusters:
     """``Clusters`` on ``device`` from the five JAX-layout arrays (keys
     ``aabb``, ``woop``, ``tri_idx``, ``scene_lo``, ``scene_hi``), with the
-    port's cluster tree and BVH built from them."""
+    port's BVH built from them."""
     device = resolve(device)
     aabb = np.asarray(arrays["aabb"], np.float32)
     woop = np.asarray(arrays["woop"], np.float32)
     tri_idx = np.asarray(arrays["tri_idx"], np.int32)
-    node_box, node_link = build_tree(aabb)
-    nodes, rows, virt, _ = build_bvh(aabb, woop, tri_idx, node_link)
+    nodes, rows, virt, _ = build_bvh(aabb, woop, tri_idx, build_tree(aabb))
     t = lambda a: torch.from_numpy(np.array(a)).to(device)
     return Clusters(aabb=t(aabb), woop=t(woop), tri_idx=t(tri_idx),
                     scene_lo=t(arrays["scene_lo"]),
-                    scene_hi=t(arrays["scene_hi"]),
-                    node_box=t(node_box), node_link=t(node_link),
-                    bvh_nodes=t(nodes), bvh_rows=t(rows), bvh_virt=t(virt))
+                    scene_hi=t(arrays["scene_hi"]), bvh_nodes=t(nodes),
+                    bvh_rows=t(rows), bvh_virt=t(virt))

@@ -6,17 +6,13 @@ distance) and ``cluster_transmittance`` (product of ``1 - alpha`` over the
 crossings within a distance) replace the Pallas TPU kernels
 ``tuturenderer_tpu/ops/pallas/cluster.py::_kernel_nearest``,
 ``::_kernel_anyhit`` and ``::_kernel_transmit``. On a CUDA tensor each
-launches its kernel or raises: the nearest and any hit walk the BVH of
-``Clusters.bvh_*`` (``csrc/bvh_walk.cu``), the transmittance the cluster
-tree of ``Clusters.node_box``/``node_link`` (``csrc/cluster_walk.cu``). On
-a CPU tensor each runs the plain PyTorch version beside it, which is also
-the kernels' oracle on the card. A wrapper refuses rays that require grad.
-
-``cluster_walk_intersect`` and ``cluster_walk_occluded`` launch the
-nearest and any hit of ``csrc/cluster_walk.cu`` (the per-ray walk over
-whole 64-row clusters that the BVH walk replaced) on CUDA tensors only:
-the yardstick ``chip_smoke.py`` times the BVH walk against. They go when
-the transmittance kernel moves onto the BVH.
+launches its kernel or raises: all three walk the BVH of ``Clusters.bvh_*``
+(``csrc/bvh_walk.cu``, one mode each); the transmittance reads each
+crossed row's alpha from ``Clusters.woop`` (slot 13), so a table whose
+``woop`` was replaced with ``dataclasses.replace`` is walked with its new
+alphas. On a CPU tensor each runs the plain PyTorch version beside it,
+which is also the kernels' oracle on the card. A wrapper refuses rays that
+require grad.
 
 The plain versions compute the same function densely: the same
 per-triangle arithmetic over every real row of the table (``tri_idx >= 0``,
@@ -29,8 +25,8 @@ transmittances that differ only by the order of the product.
 device) receive the number of ray/triangle tests and of BVH node visits
 (two box tests each; the plain versions visit none): diagnostics, not
 passed on the main path. The launches are counted in ``LAUNCHES`` (shared
-with the dense kernels) under ``cluster_nearest``, ``cluster_anyhit``,
-``cluster_transmit``, ``walk_nearest`` and ``walk_anyhit``.
+with the dense kernels) under ``cluster_nearest``, ``cluster_anyhit`` and
+``cluster_transmit``.
 """
 from __future__ import annotations
 
@@ -46,19 +42,7 @@ from .intersect import (CHUNK, F32_MAX, LAUNCHES, PARALLEL_EPS, _raise_on,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_TABLE_ARGS = 4      # node_box, node_link, woop, tri_idx / nodes, rows, ...
-
-
-def _lib():
-    lib = build.load("cluster_walk")
-    if lib.cluster_nearest.argtypes is None:
-        lib.cluster_nearest.argtypes = [_P] * (_TABLE_ARGS + 6) + [_I] + \
-            [_P] * 6
-        lib.cluster_nearest.restype = _I
-        for fn in (lib.cluster_anyhit, lib.cluster_transmit):
-            fn.argtypes = [_P] * (_TABLE_ARGS + 7) + [_I] + [_P] * 3
-            fn.restype = _I
-    return lib
+_TABLE_ARGS = 4      # _bvh_tables
 
 
 def _bvh_lib():
@@ -67,8 +51,9 @@ def _bvh_lib():
         lib.bvh_nearest.argtypes = [_P] * (_TABLE_ARGS + 6) + [_I] + \
             [_P] * 7
         lib.bvh_nearest.restype = _I
-        lib.bvh_anyhit.argtypes = [_P] * (_TABLE_ARGS + 7) + [_I] + [_P] * 4
-        lib.bvh_anyhit.restype = _I
+        for fn in (lib.bvh_anyhit, lib.bvh_transmit):
+            fn.argtypes = [_P] * (_TABLE_ARGS + 7) + [_I] + [_P] * 4
+            fn.restype = _I
     return lib
 
 
@@ -86,14 +71,11 @@ def _check(clusters, cols, *counts) -> str:
             raise ValueError("ray columns differ in length")
     refuse_grad(cols)
     c = clusters.aabb.shape[0]
-    k = clusters.node_box.shape[0]
     r = clusters.bvh_virt.shape[0]
     kb = max(clusters.bvh_nodes.shape[0], 1)     # the root at least
     want = ((clusters.aabb, torch.float32, (c, 8)),
             (clusters.woop, torch.float32, (c, 8, 128)),
             (clusters.tri_idx, torch.int32, (c, CLUSTER_SIZE)),
-            (clusters.node_box, torch.float32, (k, 8)),
-            (clusters.node_link, torch.int32, (k, 2)),
             (clusters.bvh_nodes, torch.float32, (kb, NODE_F)),
             (clusters.bvh_rows, torch.float32, (r, ROW_F)),
             (clusters.bvh_virt, torch.int32, (r,)))
@@ -117,14 +99,11 @@ def _check(clusters, cols, *counts) -> str:
     return dev.type
 
 
-def _tables(clusters):
-    return (clusters.node_box.data_ptr(), clusters.node_link.data_ptr(),
-            clusters.woop.data_ptr(), clusters.tri_idx.data_ptr())
-
-
-def _bvh_tables(clusters):
+def _bvh_tables(clusters, last):
+    """The kernels' table pointers: nodes, rows, virt and ``last``
+    (``tri_idx`` for K5/K6, ``woop`` for K7)."""
     return (clusters.bvh_nodes.data_ptr(), clusters.bvh_rows.data_ptr(),
-            clusters.bvh_virt.data_ptr(), clusters.tri_idx.data_ptr())
+            clusters.bvh_virt.data_ptr(), last.data_ptr())
 
 
 def _ptrs(cols):
@@ -133,11 +112,6 @@ def _ptrs(cols):
 
 def _counter(count):
     return None if count is None else count.data_ptr()
-
-
-def _cuda_only(kind: str, name: str):
-    if kind != "cuda":
-        raise ValueError(f"{name} runs on CUDA tensors only")
 
 
 def _nearest_out(ox):
@@ -161,9 +135,10 @@ def cluster_intersect(clusters, ox, oy, oz, dx, dy, dz, test_count=None,
     lib = _bvh_lib()
     with torch.cuda.device(ox.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bvh_nearest(*_bvh_tables(clusters), *_ptrs(cols), n,
-                              *_ptrs(out), _counter(test_count),
-                              _counter(node_count), stream)
+        err = lib.bvh_nearest(*_bvh_tables(clusters, clusters.tri_idx),
+                              *_ptrs(cols), n, *_ptrs(out),
+                              _counter(test_count), _counter(node_count),
+                              stream)
     _raise_on(err, "bvh_nearest")
     LAUNCHES["cluster_nearest"] += 1
     return out
@@ -182,72 +157,34 @@ def cluster_occluded(clusters, ox, oy, oz, dx, dy, dz, dist,
     lib = _bvh_lib()
     with torch.cuda.device(ox.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bvh_anyhit(*_bvh_tables(clusters), *_ptrs(cols), n,
-                             hit.data_ptr(), _counter(test_count),
-                             _counter(node_count), stream)
+        err = lib.bvh_anyhit(*_bvh_tables(clusters, clusters.tri_idx),
+                             *_ptrs(cols), n, hit.data_ptr(),
+                             _counter(test_count), _counter(node_count),
+                             stream)
     _raise_on(err, "bvh_anyhit")
     LAUNCHES["cluster_anyhit"] += 1
     return hit != 0
 
 
-def cluster_walk_intersect(clusters, ox, oy, oz, dx, dy, dz,
-                           test_count=None):
-    """``cluster_intersect`` by the per-ray walk over whole clusters
-    (``csrc/cluster_walk.cu``); CUDA tensors only."""
-    cols = (ox, oy, oz, dx, dy, dz)
-    _cuda_only(_check(clusters, cols, test_count), "cluster_walk_intersect")
-    out = _nearest_out(ox)
-    n = ox.shape[0]
-    if n == 0:
-        return out
-    lib = _lib()
-    with torch.cuda.device(ox.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cluster_nearest(*_tables(clusters), *_ptrs(cols), n,
-                                  *_ptrs(out), _counter(test_count), stream)
-    _raise_on(err, "cluster_nearest")
-    LAUNCHES["walk_nearest"] += 1
-    return out
-
-
-def cluster_walk_occluded(clusters, ox, oy, oz, dx, dy, dz, dist,
-                          test_count=None):
-    """``cluster_occluded`` by the per-ray walk over whole clusters
-    (``csrc/cluster_walk.cu``); CUDA tensors only."""
-    cols = (ox, oy, oz, dx, dy, dz, dist)
-    _cuda_only(_check(clusters, cols, test_count), "cluster_walk_occluded")
-    n = ox.shape[0]
-    hit = torch.empty(n, dtype=torch.int32, device=ox.device)
-    if n == 0:
-        return hit.bool()
-    lib = _lib()
-    with torch.cuda.device(ox.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cluster_anyhit(*_tables(clusters), *_ptrs(cols), n,
-                                 hit.data_ptr(), _counter(test_count), stream)
-    _raise_on(err, "cluster_anyhit")
-    LAUNCHES["walk_anyhit"] += 1
-    return hit != 0
-
-
 def cluster_transmittance(clusters, ox, oy, oz, dx, dy, dz, dist,
-                          test_count=None):
+                          test_count=None, node_count=None):
     """Product of (1 - alpha) over every triangle hit with t < dist ->
     float32 [N] (getShadowCoeffi, BVHStrategy.hpp:13-45)."""
     cols = (ox, oy, oz, dx, dy, dz, dist)
-    if _check(clusters, cols, test_count) == "cpu":
+    if _check(clusters, cols, test_count, node_count) == "cpu":
         return cluster_transmittance_plain(clusters, *cols, test_count)
     n = ox.shape[0]
     trans = torch.empty_like(ox)
     if n == 0:
         return trans
-    lib = _lib()
+    lib = _bvh_lib()
     with torch.cuda.device(ox.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cluster_transmit(*_tables(clusters), *_ptrs(cols), n,
-                                   trans.data_ptr(), _counter(test_count),
-                                   stream)
-    _raise_on(err, "cluster_transmit")
+        err = lib.bvh_transmit(*_bvh_tables(clusters, clusters.woop),
+                               *_ptrs(cols), n, trans.data_ptr(),
+                               _counter(test_count), _counter(node_count),
+                               stream)
+    _raise_on(err, "bvh_transmit")
     LAUNCHES["cluster_transmit"] += 1
     return trans
 

@@ -10,7 +10,9 @@ distance:
 - Moller-Trumbore (MT): ``tri_intersect_mt`` / ``tri_occluded_mt`` replace
   ``::_kernel`` and ``::_kernel_anyhit`` (the JAX package's
   ``PALLAS_IMPL = "mt"``), over the flat float32 [T * 12] table of
-  ``pack_triangles``.
+  ``pack_triangles``. The MT nearest hit reads its table as 16-byte
+  ``float4``, so ``tri_intersect_mt`` refuses a table that does not start
+  on a 16-byte boundary (a view at an odd offset into a larger tensor).
 
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/dense_intersect.cu`` or raises; on a CPU tensor it runs the plain
@@ -35,12 +37,11 @@ MT_FLOATS = 12          # an MT table row
 MAX_TRIS = 4096         # dense limit; larger scenes take cluster tables
 CHUNK = 512             # triangles per [N, C] tile of the plain versions
 
-# launches per kernel, the cluster kernels' and their yardstick's
-# (ops/cuda/cluster.py) and the visit-walk probe's (tools/proto_visit.py)
-# included
+# launches per kernel, the cluster kernels' (ops/cuda/cluster.py) and the
+# visit-walk probe's (tools/proto_visit.py) included
 LAUNCHES = {"nearest": 0, "anyhit": 0, "mt_nearest": 0, "mt_anyhit": 0,
             "cluster_nearest": 0, "cluster_anyhit": 0, "cluster_transmit": 0,
-            "walk_nearest": 0, "walk_anyhit": 0, "proto_visit": 0}
+            "proto_visit": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -182,7 +183,11 @@ def tri_occluded(table, ox, oy, oz, dx, dy, dz, dist):
 
 
 def tri_intersect_mt(table, ox, oy, oz, dx, dy, dz):
-    """``tri_intersect`` over an MT table (``pack_triangles``)."""
+    """``tri_intersect`` over an MT table (``pack_triangles``), which must
+    start on a 16-byte boundary."""
+    if table.data_ptr() % 16:
+        raise ValueError("the MT table must start on a 16-byte boundary "
+                         "(the kernel reads each triangle as 3 float4)")
     return _nearest("mt_nearest", "mt_nearest", MT_FLOATS,
                     tri_intersect_mt_plain, table, ox, oy, oz, dx, dy, dz)
 

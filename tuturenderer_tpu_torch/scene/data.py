@@ -501,7 +501,7 @@ def scene_from_numpy(arrays: dict, device=DEFAULT_DEVICE) -> SceneData:
 
     A mesh-scale scene's ``clusters.aabb``, ``.woop``, ``.tri_idx``,
     ``.scene_lo`` and ``.scene_hi`` become its cluster tables, with the
-    port's tree built from ``aabb``. ``bvh.*`` keys are ignored: the port
+    port's BVH built from them. ``bvh.*`` keys are ignored: the port
     has no XLA BVH (the JAX package's CPU route)."""
     device = resolve(device)
     prefix = "clusters."

@@ -1,0 +1,210 @@
+"""Device time of every intersection kernel (K1-K7) at the main path's
+shapes, in whichever checkout of the port is first on the import path.
+
+    PYTHONPATH=<checkout> python3 tuturenderer_tpu_torch/tools/time_kernels.py \
+        [--label NAME] [--out FILE]
+
+It needs a CUDA device and nvcc; the kernels build from ``<checkout>``'s
+sources. It calls only the kernels' public wrappers, the scene presets and
+``utils/timing.py``, whose signatures older checkouts share, so it times
+an older checkout (the parent of a change, unpacked by ``git archive``
+into a directory that ``.gitignore`` lists) as well as this one. Comparing
+two versions of a kernel is then one command on the card, the two
+checkouts in turns, each in its own process:
+
+    for t in <old> <new> <new> <old>; do
+        PYTHONPATH=$t python3 tuturenderer_tpu_torch/tools/time_kernels.py \
+            --label $t; done
+
+The shapes are ``chip_smoke.py``'s (which takes them from here): the dense
+kernels at simple_box's 1,048,576 rays (12 triangles) and the
+4095-triangle soup at 65,536 rays, in both forms (Woop K1/K2,
+Moller-Trumbore K3/K4, the any hits at twice the hit distance); the
+cluster kernels at the 262,144-ray bounce wavefronts of
+sphere_showcase(512, 512) and terrain(512, 512, nx=724, nz=724), K7 on
+the table whose alphas are drawn from {0.3, 0.85, 1.0}. Each time is
+``utils/timing.py``'s ``device_ms``, read twice in turns over the
+kernels; beside it, a checksum of the outputs (the sum of t over hits,
+the count of blocked rays, the sum of the transmittances), equal across
+checkouts when the kernels compute the same. The last line is one JSON
+object, also written to ``--out``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+
+def _cols(a):
+    return [a[:, i].contiguous() for i in range(3)]
+
+
+def _unit(n, gen, dev):
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    return d / d.norm(dim=1, keepdim=True)
+
+
+def dense_sets(dev):
+    """{name: (scene, camera or None, six ray columns)}: simple_box's 1M
+    rays (a checkerboard of the 1024^2 frame's camera rays and as many
+    bounce rays from random points inside the box) and a 4095-triangle
+    soup at 65,536 rays, from fixed seeds."""
+    from tuturenderer_tpu_torch.camera import primary_ray
+    from tuturenderer_tpu_torch.scene.data import SceneBuilder
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scene, cam = simple_box(1024, 1024, device=dev)
+    ys, xs = torch.meshgrid(torch.arange(1024, device=dev),
+                            torch.arange(1024, device=dev), indexing="ij")
+    keep = ((xs + ys) % 2 == 0).reshape(-1)
+    px, py = xs.reshape(-1)[keep], ys.reshape(-1)[keep]
+    o_cam, d_cam, _ = primary_ray(cam, px, py)
+    half = px.shape[0]
+    o_b = torch.rand((half, 3), generator=gen, device=dev) * 1.98 - 0.99
+    d_b = _unit(half, gen, dev)
+    o = torch.cat([torch.stack(list(o_cam), 1), o_b])
+    d = torch.cat([torch.stack(list(d_cam), 1), d_b])
+    r = np.random.RandomState(7)
+    b = SceneBuilder()
+    m = b.add_material()
+    centers = r.randn(4095, 3) * 2.0
+    b.add_triangles((centers[:, None, :] + 0.6 * r.randn(4095, 3, 3))
+                    .astype(np.float32), None, None, m)
+    soup = b.build(device=dev)
+    o_s = torch.randn((65536, 3), generator=gen, device=dev) * 3.0
+    d_s = _unit(65536, gen, dev)
+    return {"simple_box 1M": (scene, cam, _cols(o) + _cols(d)),
+            "soup 4095 x 65536": (soup, None, _cols(o_s) + _cols(d_s))}
+
+
+def dense_calls(dev) -> dict:
+    """{(kernel, shape): (call, checksum)} of K1-K4."""
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    forms = (("K1", "K2", K.pack_triangles_woop, K.tri_intersect,
+              K.tri_occluded),
+             ("K3", "K4", K.pack_triangles, K.tri_intersect_mt,
+              K.tri_occluded_mt))
+    calls = {}
+    for shape, (scene, _, rays) in dense_sets(dev).items():
+        for k_near, k_occ, pack, near, occ in forms:
+            table = pack(scene)
+            t, idx, _, _ = near(table, *rays)
+            dist = torch.where(idx >= 0, t, torch.full_like(t, 10.0)) * 2.0
+            calls[(k_near, shape)] = (
+                lambda n=near, tb=table, r=rays: n(tb, *r),
+                lambda out: float(out[0][out[1] >= 0].double().sum()))
+            calls[(k_occ, shape)] = (
+                lambda o=occ, tb=table, r=rays, dd=dist: o(tb, *r, dd),
+                lambda out: float(out.sum()))
+    return calls
+
+
+def wavefront(scene, cam):
+    """The inputs of the depth-1 nearest-hit and shadow calls of a 1-spp
+    render: a bounce wavefront as the main path gives it to the kernels
+    (dead lanes included, masked as the path masks them)."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.ops import intersect as I
+    from tuturenderer_tpu_torch.options import RenderOptions
+    calls = {"near": [], "occ": []}
+    orig = (I.cluster_intersect, I.cluster_occluded)
+
+    def near(cl, *a, **kw):
+        calls["near"].append([x.clone() for x in a])
+        return orig[0](cl, *a, **kw)
+
+    def occ(cl, *a, **kw):
+        calls["occ"].append([x.clone() for x in a])
+        return orig[1](cl, *a, **kw)
+
+    I.cluster_intersect, I.cluster_occluded = near, occ
+    try:
+        render(scene, cam, RenderOptions(spp=1), seed=0)
+    finally:
+        I.cluster_intersect, I.cluster_occluded = orig
+    return calls["near"][1], calls["occ"][1]
+
+
+def alpha_table(clusters, dev):
+    """The clusters with every real row's alpha (slot 13) drawn from
+    {0.3, 0.85, 1.0}."""
+    woop = clusters.woop.clone()
+    rows = woop.view(woop.shape[0], -1)[:, :64 * 14].view(-1, 64, 14)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pick = torch.randint(0, 3, rows.shape[:2], generator=gen, device=dev)
+    rows[..., 13] = torch.tensor([0.3, 0.85, 1.0], device=dev)[pick]
+    return dataclasses.replace(clusters, woop=woop)
+
+
+def cluster_calls(dev) -> dict:
+    """{(kernel, shape): (call, checksum)} of K5-K7 at both wavefronts."""
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase, terrain
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    calls = {}
+    for shape, make in (
+            ("showcase wavefront", lambda: sphere_showcase(512, 512,
+                                                           device=dev)),
+            ("terrain wavefront", lambda: terrain(512, 512, nx=724, nz=724,
+                                                  device=dev))):
+        scene, cam = make()
+        cl = scene.clusters
+        alpha_cl = alpha_table(cl, dev)
+        near, occ = wavefront(scene, cam)
+        calls[("K5", shape)] = (
+            lambda c=cl, r=near: C.cluster_intersect(c, *r),
+            lambda out: float(out[0][out[1] >= 0].double().sum()))
+        calls[("K6", shape)] = (
+            lambda c=cl, r=occ: C.cluster_occluded(c, *r),
+            lambda out: float(out.sum()))
+        calls[("K7", shape)] = (
+            lambda c=alpha_cl, r=occ: C.cluster_transmittance(c, *r),
+            lambda out: float(out.double().sum()))
+    return calls
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--label", default="", help="names the checkout")
+    p.add_argument("--out", default="", help="also write the JSON here")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels: needs a CUDA device")
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    import tuturenderer_tpu_torch
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    root = os.path.dirname(os.path.dirname(tuturenderer_tpu_torch.__file__))
+    print(f"time_kernels {args.label}: the port at {root}; {smi}",
+          flush=True)
+    calls = {**dense_calls(dev), **cluster_calls(dev)}
+    sums = {key: check(call()) for key, (call, check) in calls.items()}
+    turns = {key: [] for key in calls}
+    for key in [*calls, *reversed(calls)]:
+        turns[key].append(device_ms(calls[key][0]))
+    rows = []
+    for (kernel, shape), ms in turns.items():
+        mean = sum(ms) / len(ms)
+        rows.append({"kernel": kernel, "shape": shape, "ms": mean,
+                     "turns": ms, "checksum": sums[(kernel, shape)]})
+        print(f"  {kernel} {shape}: device ms {ms[0]:.4f} {ms[1]:.4f} "
+              f"(mean {mean:.4f}); checksum {sums[(kernel, shape)]!r}",
+              flush=True)
+    result = {"label": args.label, "device": smi, "kernels": rows}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
