@@ -19,7 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shadow distances at 0.5x, 1x, 2x and within 1e-4 of the hit distance;
    with the device time and the bound of each (``utils/timing.py``: CUDA
    events around back-to-back calls, the stream held while the host
-   enqueues them);
+   enqueues them), at simple_box and at the soup; then the tiled kernels'
+   ragged edges (1 to 1,001 rays against soups of 1 to 4,095 triangles)
+   and a block-exit set for the any hits (blocks of 512 rays all blocked
+   in the first tile, never blocked, and mixed);
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
    on the card, with the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
@@ -209,12 +212,14 @@ def dense_form(form: str) -> dict:
 
 
 def compare_kernels(name: str, form: str, scene, rays, report: dict,
-                    timed: bool = True):
+                    timed: bool = True, quiet: bool = False):
     """Kernel vs plain on one ray set, nearest hit and any hit, in one
     dense form: hits equal, t and the barycentrics bit-equal, idx equal
     wherever t is unique, every any-hit mask equal. Returns the kernel and
-    plain device times (ms), or {} when not ``timed``."""
+    plain device times (ms), or {} when not ``timed``. ``quiet`` logs
+    nothing unless a comparison fails."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
+    say = (lambda msg: None) if quiet else log
     f = dense_form(form)
     k_near, k_occ = f["keys"]
     table = f["pack"](scene)
@@ -233,7 +238,7 @@ def compare_kernels(name: str, form: str, scene, rays, report: dict,
     same = both & (ik == ip)
     uv_err = max((uk - up)[same].abs().max().item(),
                  (vk - vp)[same].abs().max().item()) if same.any() else 0.0
-    log(f"  {name}: nearest rays={rays[0].shape[0]} "
+    say(f"  {name}: nearest rays={rays[0].shape[0]} "
         f"hit={hp.float().mean().item():.4f} hit/miss disagree={n_split} "
         f"max|dt|={t_err:.3g} idx differs={int(idx_diff.sum())} "
         f"max|du|,|dv|={uv_err:.3g}")
@@ -257,7 +262,7 @@ def compare_kernels(name: str, form: str, scene, rays, report: dict,
         bp = f["occ_plain"](table, *rays, dist)
         n_diff = int((bk != bp).sum())
         any_err = max(any_err, float(n_diff > 0))
-        log(f"  {name}: any-hit dist=t*{fac}{off:+g} blocked="
+        say(f"  {name}: any-hit dist=t*{fac}{off:+g} blocked="
             f"{bp.float().mean().item():.4f} disagree={n_diff}")
         if n_diff:
             raise AssertionError(f"{name}: any-hit disagrees on {n_diff} rays")
@@ -337,19 +342,85 @@ def phase_kernels(dev):
     for form in ("woop", "mt"):
         times.update(compare_kernels("simple_box 12 tris", form, scene, rays,
                                      report))
-        bounds.update(dense_bounds(form, scene, rays))
+        bounds.update(dense_bounds(form, scene, rays, "simple_box 1M"))
         compare_kernels(f"simple_box {ragged} rays", form, scene,
                         [c[:ragged] for c in rays], report, timed=False)
         compare_kernels("simple_box edges+vertices", form, scene, edges,
                         report)
-        times.update({f"soup_{k}": v for k, v in compare_kernels(
-            "soup 4095 tris", form, soup, soup_rays, report).items()})
-        # the soup's nearest hit tests every triangle: its operations bound
+        soup_ms = compare_kernels("soup 4095 tris", form, soup, soup_rays,
+                                  report)
+        times.update({f"soup_{k}": v for k, v in soup_ms.items()})
+        soup_bounds = dense_bounds(form, soup, soup_rays, "soup 4095 tris")
         f = dense_form(form)
-        n_soup = soup_rays[0].shape[0]
-        bound(f"{f['labels'][0]} soup 4095 tris", n_soup * 40 +
-              4095 * f["floats"] * 4, n_soup * 4095.0, f["flop"])
+        for k, label, kind in zip(f["keys"], f["labels"],
+                                  ("nearest hit", "any hit at 2 t")):
+            log(f"  {label} soup 4095 x 65536 ({kind}): kernel "
+                f"{soup_ms[k]:.4f} ms, plain {soup_ms[k + '_plain']:.4f} ms, "
+                f"bound {soup_bounds[k][0]:.4f} ms ({soup_bounds[k][1]})")
+    ragged_sets(dev, report)
+    block_exit_set(dev)
     return report, times, bounds
+
+
+RAGGED_RAYS = (1, 255, 257, 511, 513, 1001)
+RAGGED_TRIS = (1, 12, 255, 256, 257, 300, 4095)
+
+
+def ragged_sets(dev, report: dict):
+    """The tiled kernels' ragged edges, both forms: ray counts below,
+    around and off a 512-ray block, against soups of one triangle, of a
+    256-triangle tile and around it, and of 16 tiles."""
+    from tuturenderer_tpu_torch.tools.time_kernels import soup
+    for n_tris in RAGGED_TRIS:
+        scene = soup(n_tris, dev, seed=1)
+        for n_rays in RAGGED_RAYS:
+            gen = torch.Generator(device=dev).manual_seed(n_rays)
+            o = torch.randn((n_rays, 3), generator=gen, device=dev) * 3.0
+            rays = cols(o) + cols(random_unit(n_rays, gen, dev))
+            for form in ("woop", "mt"):
+                compare_kernels(f"ragged {n_rays} rays x {n_tris} tris",
+                                form, scene, rays, report, timed=False,
+                                quiet=True)
+    log(f"  ragged: rays {RAGGED_RAYS} x triangles {RAGGED_TRIS}, both "
+        "forms: every kernel equal to its plain version")
+
+
+def block_exit_set(dev):
+    """The any hits where whole blocks of 512 rays settle at once: at the
+    4095-triangle soup (16 tiles), a block aimed at triangles 0-255 with no
+    distance limit (all blocked in the first tile), a block at dist 0
+    (never blocked: every tile), a block that mixes them, a ragged last
+    block."""
+    from tuturenderer_tpu_torch.tools.time_kernels import soup
+    scene = soup(4095, dev, seed=1)
+    verts = torch.stack([torch.stack(list(v), 1)
+                         for v in (scene.tv0, scene.tv1, scene.tv2)], 1)
+    r = np.random.RandomState(9)
+    n = 4 * 512 + 100
+    aim = torch.from_numpy(r.randint(0, 256, n)).to(dev)
+    o = torch.from_numpy((r.randn(n, 3) * 8.0).astype(np.float32)).to(dev)
+    d = verts[aim].mean(dim=1) - o
+    rays = cols(o) + cols(d / d.norm(dim=1, keepdim=True))
+    dist = torch.full((n,), float("inf"), device=dev)
+    dist[512:1024] = 0.0
+    dist[1024 + 1:1536:2] = 0.0
+    dist[2048 + 1::3] = 0.0
+    for form in ("woop", "mt"):
+        f = dense_form(form)
+        table = f["pack"](scene)
+        got = f["occ"](table, *rays, dist)
+        want = f["occ_plain"](table, *rays, dist)
+        n_diff = int((got != want).sum())
+        blocks = [f"{want[lo:lo + 512].float().mean().item():.3f}"
+                  for lo in range(0, n, 512)]
+        log(f"  block exits [{f['labels'][1]}]: blocked per block "
+            f"{' '.join(blocks)}, disagree={n_diff}")
+        if n_diff:
+            raise AssertionError(f"{f['labels'][1]} block exits: any hit "
+                                 f"disagrees on {n_diff} rays")
+        if not (bool(want[:512].all()) and not bool(want[512:1024].any())):
+            raise AssertionError("the block-exit set lost its all-blocked "
+                                 "and never-blocked blocks")
 
 
 def bound(name: str, n_bytes: float, tests: float,
@@ -366,30 +437,25 @@ def bound(name: str, n_bytes: float, tests: float,
     return max(byte_ms, op_ms), by
 
 
-def dense_bounds(form: str, scene, rays) -> dict:
-    """A dense form's bounds at the simple_box 1M-ray set: rays read once
-    (24 bytes, 28 with dist), results written once (16, 4), the table
-    once; tests: every triangle for the nearest hit, up to the first
-    blocker for the any hit (at 2x the hit distance, the timed set)."""
-    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+def dense_bounds(form: str, scene, rays, shape: str) -> dict:
+    """A dense form's bounds at one ray set: rays read once (24 bytes, 28
+    with dist), results written once (16, 4), the table once; tests:
+    every triangle for the nearest hit, up to the first blocker for the
+    any hit (at 2x the hit distance, the timed set)."""
+    from tuturenderer_tpu_torch.tools.time_kernels import anyhit_tests
     f = dense_form(form)
     k_near, k_occ = f["keys"]
     table = f["pack"](scene)
     n, n_tris = rays[0].shape[0], table.shape[0] // f["floats"]
     t, idx, _, _ = f["near_plain"](table, *rays)
     dist = torch.where(idx >= 0, t, torch.full_like(t, 10.0)) * 2.0
-    tt, _, _, ok = f["tile"](table.reshape(-1, f["floats"]),
-                             *[c[:, None] for c in rays])
-    d2 = dist[:, None]
-    ok = ok & (tt < d2) & ((tt - d2).abs() >= K.PARALLEL_EPS)
-    first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1,
-                        torch.full_like(idx, n_tris, dtype=torch.int64))
     tbytes = table.numel() * 4
     k1, k2 = f["labels"]
-    return {k_near: bound(f"{k1} simple_box 1M", n * 40 + tbytes,
-                          n * n_tris, f["flop"]),
-            k_occ: bound(f"{k2} simple_box 1M", n * 32 + tbytes,
-                         float(first.sum()), f["flop"])}
+    return {k_near: bound(f"{k1} {shape}", n * 40 + tbytes, n * n_tris,
+                          f["flop"]),
+            k_occ: bound(f"{k2} {shape}", n * 32 + tbytes,
+                         anyhit_tests(f["tile"], f["floats"], table, rays,
+                                      dist), f["flop"])}
 
 
 def phase_slice(dev):

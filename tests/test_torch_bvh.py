@@ -283,3 +283,29 @@ def test_walk_transmittance_follows_replaced_alphas(table, walked):
     assert crossed.any()
     assert (want[crossed] > 0.0).all() and (want[crossed] < 1.0).all()
     np.testing.assert_array_equal(want[~crossed], 1.0)
+
+
+@pytest.mark.parametrize("slot", [0, 3, 10], ids=["r1x", "c1", "r3z"])
+def test_replacing_woop_geometry_raises(table, walked, slot):
+    """Construction holds every real row's first 12 Woop floats to its copy
+    in ``bvh_rows``, bit for bit: new alphas alone pass, and K7's plain
+    version reads them; one real row moved by one ulp in any of the 12
+    raises and names the fix."""
+    _, _, _, cl = table
+    o, d, _, _ = walked
+    woop = cl.woop.clone()
+    rows = woop.view(woop.shape[0], -1)[:, :64 * TC.WOOP_F] \
+        .view(-1, 64, TC.WOOP_F)
+    rows[..., 13] = 0.5
+    glass = dataclasses.replace(cl, woop=woop.clone())
+    far = np.full(len(o), FAR, np.float32)
+    opaque = _transmit(cl, o, d, far)[1]
+    want = _transmit(glass, o, d, far)[1]
+    crossed = opaque == 0.0
+    assert crossed.any() and (want[crossed] > 0.0).all()
+    real = torch.nonzero(cl.tri_idx >= 0)
+    c, s = (int(x) for x in real[len(real) // 2])
+    rows[c, s, slot] = torch.nextafter(rows[c, s, slot],
+                                       torch.tensor(np.inf))
+    with pytest.raises(ValueError, match="rebuild the tables"):
+        dataclasses.replace(cl, woop=woop)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import special_rays, special_verts
 from tuturenderer_tpu_torch import grad as G
 from tuturenderer_tpu_torch.camera import primary_ray
 from tuturenderer_tpu_torch.integrators.path import render
@@ -280,6 +281,107 @@ def test_mt_nearest_refuses_an_unaligned_table(dev):
     with pytest.raises(ValueError, match="16-byte"):
         K.tri_intersect_mt(table, *rays)
     assert K.LAUNCHES == before
+
+
+SHADOW_DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
+                (1.0, -5e-5), (1.0, 2e-4), (1.0, -2e-4))
+
+
+@pytest.mark.parametrize("n_tris", [1, 12, 255, 256, 257, 300, 4095])
+@pytest.mark.parametrize("n_rays", [1, 255, 257, 511, 513, 1001])
+def test_tiled_kernels_ragged_edges(dev, n_rays, n_tris):
+    """K1 (Woop nearest hit) and K4 (MT any hit) trace two rays per thread,
+    512 per block, against tiles of 256 triangles: ray counts below,
+    around and off a block, tables of one triangle, of a tile and around
+    it, and of 16 tiles, bit-equal to the plain versions at shadow
+    distances around each hit."""
+    scene, o, d = _soup(dev, n_tris=n_tris, n_rays=n_rays)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    woop, mt = K.pack_triangles_woop(scene), K.pack_triangles(scene)
+    before = dict(K.LAUNCHES)
+    want = K.tri_intersect_plain(woop, *rays)
+    for g, w in zip(K.tri_intersect(woop, *rays), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    t, idx, _, _ = K.tri_intersect_mt_plain(mt, *rays)
+    t_ref = torch.where(idx >= 0, t, 10.0)
+    for scale, off in SHADOW_DISTS:
+        dist = t_ref * scale + off
+        torch.testing.assert_close(K.tri_occluded_mt(mt, *rays, dist),
+                                   K.tri_occluded_mt_plain(mt, *rays, dist))
+    got = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    want_launches = dict.fromkeys(K.LAUNCHES, 0)
+    want_launches.update(nearest=1, mt_anyhit=len(SHADOW_DISTS))
+    assert got == want_launches
+
+
+def test_mt_anyhit_block_exits(dev):
+    """K4's exits at 4,095 triangles (16 tiles): a block of 512 rays all
+    blocked in the first tile (rays aimed at the centroids of triangles
+    0-255, no distance limit) leaves after it; a block never blocked
+    (dist 0) walks every tile; a block that mixes the two, and a ragged
+    last block, walk on for their unblocked rays."""
+    scene, _, _ = _soup(dev, n_tris=4095, n_rays=1)
+    verts = torch.stack([torch.stack(list(v), 1)
+                         for v in (scene.tv0, scene.tv1, scene.tv2)], 1)
+    r = np.random.RandomState(9)
+    n = 4 * 512 + 100
+    aim = torch.from_numpy(r.randint(0, 256, n)).to(dev)
+    o = torch.from_numpy((r.randn(n, 3) * 8.0).astype(np.float32)).to(dev)
+    d = verts[aim].mean(dim=1) - o
+    d = d / d.norm(dim=1, keepdim=True)
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    dist = torch.full((n,), float("inf"), device=dev)
+    dist[512:1024] = 0.0
+    dist[1024 + 1:1536:2] = 0.0
+    dist[2048 + 1::3] = 0.0
+    table = K.pack_triangles(scene)
+    want = K.tri_occluded_mt_plain(table, *rays, dist)
+    torch.testing.assert_close(K.tri_occluded_mt(table, *rays, dist), want)
+    assert bool(want[:512].all()) and not bool(want[512:1024].any())
+    assert bool(want[1024:1536:2].all()) and bool(want[1536:2048].all())
+
+
+def test_dense_kernels_on_special_rays(dev):
+    """K1-K4 against their plain versions on rays at the arithmetic's edge
+    cases (``torch_port_util.special_rays``: in-plane rays, det = +-0, inf
+    and NaN values, subnormal products, exact t ties), bit-equal, and the
+    any hits at distances around each hit, at inf and at NaN."""
+    verts = special_verts()
+    b = SceneBuilder()
+    m = b.add_material()
+    b.add_triangles(verts, None, None, m)
+    scene = b.build(device=dev)
+    o, d, _ = special_rays(verts)
+    rays = [torch.from_numpy(np.ascontiguousarray(a[:, i])).to(dev)
+            for a in (o, d) for i in range(3)]
+    forms = ((K.pack_triangles_woop, K.tri_intersect, K.tri_intersect_plain,
+              K.tri_occluded, K.tri_occluded_plain),
+             (K.pack_triangles, K.tri_intersect_mt, K.tri_intersect_mt_plain,
+              K.tri_occluded_mt, K.tri_occluded_mt_plain))
+    for pack, near, near_plain, occ, occ_plain in forms:
+        table = pack(scene)
+        want = near_plain(table, *rays)
+        for g, w in zip(near(table, *rays), want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        t = torch.where(want[1] >= 0, want[0], 2.0)
+        for dist in (t * 0.5, t, t * 2.0, t + 5e-5, t - 5e-5, t + 1e-4,
+                     t - 1e-4, torch.full_like(t, float("inf")),
+                     torch.full_like(t, float("nan"))):
+            torch.testing.assert_close(occ(table, *rays, dist),
+                                       occ_plain(table, *rays, dist))
+
+
+def test_woop_nearest_takes_an_unaligned_table(dev):
+    """K1 stages its rows 4 bytes at a time: a Woop table at a 4-byte
+    offset gives the aligned table's answers."""
+    scene, o, d = _soup(dev, n_tris=300, n_rays=1001)
+    base = K.pack_triangles_woop(scene)
+    table = torch.cat([base.new_zeros(1), base])[1:]
+    assert table.data_ptr() % 16 == 4
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    for g, w in zip(K.tri_intersect(table, *rays),
+                    K.tri_intersect_plain(base, *rays)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def _fwd_bwd(scene, cam, opts):

@@ -262,9 +262,8 @@ def test_mt_wrapper_rejects_bad_inputs(bad):
 
 
 def test_mt_nearest_refuses_an_unaligned_table():
-    """K3 reads its table as float4: a view at a 1-float offset is refused
-    on every device; an aligned copy is taken, and K4 (scalar reads) takes
-    the view."""
+    """K3 and K4 read their table as float4: a view at a 1-float offset is
+    refused on every device by both wrappers; an aligned copy is taken."""
     base = torch.zeros(12 * 2 + 1)
     table = base[1:]
     assert base.data_ptr() % 16 == 0 and table.is_contiguous()
@@ -274,4 +273,6 @@ def test_mt_nearest_refuses_an_unaligned_table():
         K.tri_intersect_mt(table, *rays)
     t, idx, _, _ = K.tri_intersect_mt(table.clone(), *rays)
     assert (idx == -1).all() and (t == np.float32(3.4e38)).all()
-    assert not K.tri_occluded_mt(table, *rays, torch.ones(8)).any()
+    with pytest.raises(ValueError, match="16-byte"):
+        K.tri_occluded_mt(table, *rays, torch.ones(8))
+    assert not K.tri_occluded_mt(table.clone(), *rays, torch.ones(8)).any()

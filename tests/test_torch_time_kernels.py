@@ -44,3 +44,33 @@ def test_wavefront_and_alpha_table():
     assert alpha_cl.bvh_rows is cl.bvh_rows
     trans = C.cluster_transmittance(alpha_cl, *occ)
     assert bool((trans < 1.0).any()) and bool((trans > 0.0).any())
+
+
+@pytest.mark.parametrize("form", ["woop", "mt"])
+def test_anyhit_tests_count_up_to_the_first_blocker(form):
+    """The any hit's data-dependent work: per ray, the tests a serial loop
+    makes up to and including its first blocker, or every triangle, in
+    chunks of rays."""
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    scene = TK.soup(40, "cpu", seed=3)
+    gen = torch.Generator().manual_seed(5)
+    o = torch.randn((300, 3), generator=gen) * 3.0
+    d = TK._unit(300, gen, "cpu")
+    rays = TK._cols(o) + TK._cols(d)
+    pack, occ, tile, floats = (
+        (K.pack_triangles_woop, K.tri_occluded_plain, K._woop_tile, 13)
+        if form == "woop" else
+        (K.pack_triangles, K.tri_occluded_mt_plain, K._mt_tile, 12))
+    table = pack(scene)
+    dist = torch.full((300,), 8.0)
+    want = 0
+    for i in range(300):
+        ray = [c[i:i + 1] for c in rays]
+        for k in range(40):
+            if occ(table[k * floats:(k + 1) * floats], *ray, dist[i:i + 1]):
+                want += k + 1
+                break
+        else:
+            want += 40
+    assert 300 < want < 300 * 40
+    assert TK.anyhit_tests(tile, floats, table, rays, dist, chunk=64) == want

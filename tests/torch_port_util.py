@@ -21,7 +21,11 @@
   ``jax_grad_case`` computes one with the JAX package;
 - ``bvh_walk`` walks the port's BVH (``Clusters.bvh_*``) one ray at a time
   in float32 numpy, as ``csrc/bvh_walk.cu`` walks it in each of its three
-  modes, so the CPU tests check the tree where the kernel cannot run.
+  modes, so the CPU tests check the tree where the kernel cannot run;
+- ``special_verts`` and ``special_rays`` make triangles and rays that reach
+  the dense kernels' edge cases (in-plane rays, det = +-0, inf and NaN
+  values, subnormal products, exact t ties), for the CPU tests against
+  the JAX package and the card's tests against the plain versions.
 """
 from __future__ import annotations
 
@@ -324,3 +328,78 @@ def bvh_walk(nodes, rows, o, d, dist=None, leaf_bits: int = 4,
         else:
             out.append((stop if transmit is None else trans, tested))
     return out
+
+
+# triangles: a unit right triangle in z = 0 (at 0 and again at 3, for an
+# exact t tie), a tilted one, a tiny one (e ~ 1e-19: |n| and det
+# subnormal or 0), a huge one (det overflows to inf), and one whose
+# in-plane ray d = (1, -0, -0) gives det = -0
+SPECIAL_TRIS = [
+    [[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+    [[0, 0, 1], [1, 0, 2], [0, 1, 1.5]],
+    [[0, 0, 0.5], [1e-19, 0, 0.5], [0, 1e-19, 0.5]],
+    [[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+    [[-3e19, -3e19, 2], [3e19, -3e19, 2], [0, 3e19, 2]],
+    [[0, 0, 0], [1, 0, 0], [0.3, -1, 1]],
+]
+
+
+def special_verts() -> np.ndarray:
+    """[16, 3, 3] float32: ``SPECIAL_TRIS`` and ten random triangles."""
+    r = np.random.RandomState(11)
+    centers = r.randn(10, 3)
+    soup = centers[:, None, :] + 0.6 * r.randn(10, 3, 3)
+    return np.concatenate([np.asarray(SPECIAL_TRIS), soup]).astype(np.float32)
+
+
+def special_rays(verts):
+    """[N, 3] origins and directions, float32, and the number of leading
+    rays whose answers neither rounding nor subnormals decide: in-plane
+    rays, inf and NaN values. The rays after them make subnormal
+    products, graze edges and vertices, or are random."""
+    rays = []
+    # in each triangle's plane, along and against its edges
+    for v0, v1, v2 in verts[:6].astype(np.float64):
+        for e in (v1 - v0, v2 - v0, v2 - v1, (v1 - v0) + (v2 - v0)):
+            for sgn in (1.0, -1.0):
+                rays.append((v0 + 0.25 * (v1 - v0) - sgn * e, sgn * e))
+    rays.append(((0.5, 0.0, 0.0), (1.0, -0.0, -0.0)))
+    # inf and NaN components, in the origin and in the direction
+    o_hit, d_hit = (0.2, 0.2, 1.0), (0.0, 0.0, -1.0)
+    for k in range(3):
+        for bad in (np.inf, -np.inf, np.nan):
+            o = list(o_hit)
+            o[k] = bad
+            rays.append((o, d_hit))
+            d = list(d_hit)
+            d[k] = bad
+            rays.append((o_hit, d))
+    n_values = len(rays)
+    # subnormal products: tiny directions and offsets
+    for tiny in (1e-25, -1e-25, 1e-38, 1e-40, -1e-44):
+        rays.append(((0.2, 0.2, 1.0), (tiny, tiny, -1.0)))
+        rays.append(((0.2, 0.2, tiny), (0.0, 0.0, -1.0)))
+        rays.append(((0.2, 0.2, 1.0), (tiny, tiny, tiny)))
+        rays.append(((1e-20, 1e-20, 1.0), (tiny, tiny, -1.0)))
+    # through the tiny and the huge triangle, and grazing the unit one's
+    # edges and vertices (and along the tilted one's long edge)
+    rays.append(((2e-20, 2e-20, 1.0), (0.0, 0.0, -1.0)))
+    rays.append(((0.0, 0.0, 5.0), (0.0, 0.0, -1.0)))
+    rays.append(((1e19, 0.0, 5.0), (0.0, 0.0, -1.0)))
+    for p in ((0.5, 0.5, 0.0), (0.0, 0.0, 0.0), (1.0, 0.0, 0.0),
+              (0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.3, 0.3, 0.0)):
+        rays.append(((p[0], p[1], 1.0), (0.0, 0.0, -1.0)))
+        rays.append(((p[0] + 0.1, p[1] - 0.1, -1.0), (-0.1, 0.1, 1.0)))
+    o = np.asarray([np.asarray(a, np.float64) for a, _ in rays])
+    d = np.asarray([np.asarray(b, np.float64) for _, b in rays])
+    # and random rays aimed at the triangles
+    r = np.random.RandomState(12)
+    n = 192
+    ro = r.randn(n, 3) * 3.0
+    aim = verts[r.randint(0, len(verts), n)].mean(axis=1)
+    aim[: n // 2] = verts[r.randint(6, len(verts), n // 2)].mean(axis=1)
+    rd = aim + 0.4 * r.randn(n, 3) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    with np.errstate(all="ignore"):
+        return (np.concatenate([o, ro]).astype(np.float32),
+                np.concatenate([d, rd]).astype(np.float32), n_values)

@@ -16,20 +16,26 @@
 // factorised in float64 on the host. MT table: flat float32 [T * 12],
 //   v0(3) e1(3) e2(3) n_hat(3)
 // computed in float32 on the device, 48 bytes a triangle, starting on a
-// 16-byte boundary (the wrapper checks). Rays: six float32 [N] columns.
+// 16-byte boundary (the wrappers check). Rays: six float32 [N] columns.
 //
-// K1, K2 and K4: one thread per ray, a loop over the T triangles in index
-// order. Triangle i is read with 12 (13) uniform-index __ldg loads; every
-// thread of a warp reads the same address, so each is a broadcast served
-// from L1. The any-hit thread returns at its first accepted triangle.
+// K2 (anyhit_kernel<Woop>): one thread per ray, a loop over the T
+// triangles in index order, triangle i read with 13 uniform-index __ldg
+// loads (a broadcast served from L1); the thread returns at its first
+// accepted triangle.
 //
-// K3 (mt_nearest_kernel): the block stages the table in shared memory in
-// tiles of 256 triangles (12 KB), copied as 16-byte cp.async with the next
-// tile in flight while the current one is tested; each test reads its
-// triangle as three float4, a broadcast (every lane the same address, no
-// bank conflict); each thread traces two rays (i and i + 256 of its
-// block's 512), so one triangle read serves two tests and the two chains
-// hide the division's latency. Ray columns and outputs stay coalesced.
+// K1, K3 and K4 (woop_nearest_kernel, mt_nearest_kernel,
+// mt_anyhit_kernel): the block stages the table in shared memory in tiles
+// of 256 triangles, the next tile in flight by cp.async while the current
+// one is tested; each test reads its triangle as broadcast float4s (every
+// lane the same address, no bank conflict); each thread traces two rays
+// (i and i + 256 of its block's 512), so one triangle read and one trip of
+// the loop serve two tests, and the two rays' tests are independent
+// chains the scheduler interleaves. Ray columns and outputs stay
+// coalesced. An MT tile is 3 float4 a triangle, copied 16 bytes at a
+// time. A Woop row is 13 floats (52 bytes), so it cannot be read in place
+// as float4s: its tile is copied 4 bytes at a time into rows padded to 16
+// floats, read as three float4 and one float, and the table needs no
+// alignment beyond a float.
 //
 // Every nearest hit keeps its best in registers and updates on a strict
 // t < best in index order, so an exact t tie keeps the lowest index.
@@ -37,14 +43,26 @@
 // What bounds them: at simple_box's 12 triangles a launch reads 24 bytes
 // (28 with dist) and writes 16 (4) per ray, ~40 MB for 1M rays, 0.0125 ms
 // at 3.35 TB/s. A test costs ~35 fp32 operations in the Woop form and ~55
-// in the MT form, unfused under --fmad=false, plus the division, compares
-// and selects; issuing those, not the bytes, sets the time (on an H100,
-// K3 at 4095 triangles takes ~119 issue slots per test at the card's peak
-// clock, PERF.md).
-// K3's design takes the triangle loads off that issue (3 shared-memory
-// reads per two tests, in place of 12 scalar loads per test), leaving the
-// test's own arithmetic. K1, K2 and K4 still read scalars, and the any
-// hits have no per-block early exit (__syncthreads_and): later work.
+// in the MT form, unfused under --fmad=false, plus the IEEE reciprocal
+// (its range check, MUFU.RCP and two refinement steps), compares and
+// selects; issuing those, not the bytes, sets the time (on an H100, K1 and
+// K3 take ~90 and ~104 warp-instruction slots per test at 1M rays,
+// PERF.md). Staging takes the triangle loads off that stream; the rest is
+// the test's own arithmetic, so the tiled loops are branch-free and
+// unrolled by 4: at the 4095-triangle soup's 65,536 rays a launch has 8
+// warps per SM, and the time is the latency of each test's dependent
+// chain, which only independent tests in flight (two rays, four
+// triangles) hide. Measured on an H100 (PERF.md): a test that returns as
+// soon as a conjunct of its acceptance fails, or skips the division on a
+// sign test, is slower at both shapes (a warp executes the union of its
+// lanes' paths, and the branches serialise the chains), so the tests are
+// not cut short.
+//
+// K4 stops at the first blocker only where that saves instructions: a warp
+// leaves the loop once all 64 of its rays are settled (blocked, or past
+// n; __all_sync), and after each tile the block votes (__syncthreads_and)
+// and stops staging tiles once every ray in it is settled. A thread alone
+// that stopped would save nothing: its warp runs its lanes all the same.
 
 #include <cuda_runtime.h>
 
@@ -55,118 +73,81 @@ namespace {
 constexpr float kF32Max = 3.4e38f;
 constexpr float kParallelEps = 1e-4f;   // FLOAT_EQUAL, global.hpp:134-136
 constexpr int kBlock = 256;
+constexpr int kTile = 256;              // triangles per shared-memory tile
+constexpr int kMtTileF4 = 3 * kTile;    // float4 per MT tile
+constexpr int kWoopFloats = 13;         // a Woop table row
+constexpr int kWoopRowF = 16;           // a staged Woop row, padded
+constexpr int kRays = 2;                // rays per thread of a tiled kernel
 
 struct Hit {
   float t, u, v;
   bool ok;    // accepted by Triangle.hpp:39-49; comparisons with NaN fail
 };
 
-// Woop test of one ray against triangle `tri`: t = -w_o * (1 / w_d),
+// Woop test of one ray against one triangle: t = -w_o * (1 / w_d),
 // u = (o.r1 - c1) + t (d.r1), v likewise, dn = w_d |n| = dir . n_hat.
 // Accepted when not near-parallel and t, u, v, 1 - u - v > 0.
+__device__ __forceinline__ Hit woop_test(
+    float r1x, float r1y, float r1z, float c1, float r2x, float r2y,
+    float r2z, float c2, float r3x, float r3y, float r3z, float c3,
+    float nlen, float ox, float oy, float oz, float dx, float dy, float dz) {
+  const float w_o = ox * r3x + oy * r3y + oz * r3z - c3;
+  const float w_d = dx * r3x + dy * r3y + dz * r3z;
+  const float inv = 1.0f / w_d;     // w_d == 0 -> inf/NaN, rejected below
+  Hit h;
+  h.t = -w_o * inv;
+  h.u = (ox * r1x + oy * r1y + oz * r1z - c1) + h.t * (dx * r1x + dy * r1y + dz * r1z);
+  h.v = (ox * r2x + oy * r2y + oz * r2z - c2) + h.t * (dx * r2x + dy * r2y + dz * r2z);
+  const float dn = w_d * nlen;
+  h.ok = (fabsf(dn) >= kParallelEps) & (h.t > 0.0f) & (h.u > 0.0f) &
+         (h.v > 0.0f) & (1.0f - h.u - h.v > 0.0f);
+  return h;
+}
+
+// The Woop form of anyhit_kernel (K2): triangle `tri` of the flat table
+// read with 13 scalar loads.
 struct Woop {
-  static constexpr int kFloats = 13;
+  static constexpr int kFloats = kWoopFloats;
   __device__ __forceinline__ static Hit test(const float* __restrict__ tri,
                                              float ox, float oy, float oz,
                                              float dx, float dy, float dz) {
-    const float r1x = __ldg(tri + 0), r1y = __ldg(tri + 1), r1z = __ldg(tri + 2);
-    const float c1 = __ldg(tri + 3);
-    const float r2x = __ldg(tri + 4), r2y = __ldg(tri + 5), r2z = __ldg(tri + 6);
-    const float c2 = __ldg(tri + 7);
-    const float r3x = __ldg(tri + 8), r3y = __ldg(tri + 9), r3z = __ldg(tri + 10);
-    const float c3 = __ldg(tri + 11);
-    const float nlen = __ldg(tri + 12);
-    const float w_o = ox * r3x + oy * r3y + oz * r3z - c3;
-    const float w_d = dx * r3x + dy * r3y + dz * r3z;
-    const float inv = 1.0f / w_d;     // w_d == 0 -> inf/NaN, rejected below
-    Hit h;
-    h.t = -w_o * inv;
-    h.u = (ox * r1x + oy * r1y + oz * r1z - c1) + h.t * (dx * r1x + dy * r1y + dz * r1z);
-    h.v = (ox * r2x + oy * r2y + oz * r2z - c2) + h.t * (dx * r2x + dy * r2y + dz * r2z);
-    const float dn = w_d * nlen;
-    h.ok = fabsf(dn) >= kParallelEps && h.t > 0.0f && h.u > 0.0f &&
-           h.v > 0.0f && 1.0f - h.u - h.v > 0.0f;
-    return h;
+    return woop_test(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
+                     __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
+                     __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8),
+                     __ldg(tri + 9), __ldg(tri + 10), __ldg(tri + 11),
+                     __ldg(tri + 12), ox, oy, oz, dx, dy, dz);
   }
 };
 
 // Moller-Trumbore test in the order of _kernel: s = o - v0, s1 = d x e2,
 // s2 = s x e1, det = s1 . e1, dn = d . n_hat, inv = 1 / det (unguarded:
 // det == 0 gives inf/NaN), t, u, v as products with inv. Accepted as the
-// Woop form, and det != 0.
-struct MollerTrumbore {
-  static constexpr int kFloats = 12;
-  __device__ __forceinline__ static Hit eval(
-      float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
-      float e2x, float e2y, float e2z, float nux, float nuy, float nuz,
-      float ox, float oy, float oz, float dx, float dy, float dz) {
-    const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-    const float s1x = dy * e2z - dz * e2y;
-    const float s1y = dz * e2x - dx * e2z;
-    const float s1z = dx * e2y - dy * e2x;
-    const float s2x = sy * e1z - sz * e1y;
-    const float s2y = sz * e1x - sx * e1z;
-    const float s2z = sx * e1y - sy * e1x;
-    const float det = s1x * e1x + s1y * e1y + s1z * e1z;
-    const float dn = dx * nux + dy * nuy + dz * nuz;
-    const float inv = 1.0f / det;
-    Hit h;
-    h.t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv;
-    h.u = (s1x * sx + s1y * sy + s1z * sz) * inv;
-    h.v = (s2x * dx + s2y * dy + s2z * dz) * inv;
-    h.ok = fabsf(dn) >= kParallelEps && det != 0.0f && h.t > 0.0f &&
-           h.u > 0.0f && h.v > 0.0f && 1.0f - h.u - h.v > 0.0f;
-    return h;
-  }
-  // triangle `tri` of the flat table, 12 scalar loads (K4)
-  __device__ __forceinline__ static Hit test(const float* __restrict__ tri,
-                                             float ox, float oy, float oz,
-                                             float dx, float dy, float dz) {
-    return eval(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
-                __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
-                __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8),
-                __ldg(tri + 9), __ldg(tri + 10), __ldg(tri + 11), ox, oy, oz,
-                dx, dy, dz);
-  }
-  // a triangle as three float4: v0x v0y v0z e1x | e1y e1z e2x e2y |
-  // e2z nux nuy nuz (K3, from shared memory)
-  __device__ __forceinline__ static Hit test(const float4& a, const float4& b,
-                                             const float4& c, float ox,
-                                             float oy, float oz, float dx,
-                                             float dy, float dz) {
-    return eval(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w,
-                ox, oy, oz, dx, dy, dz);
-  }
-};
-
-template <typename Form>
-__global__ void __launch_bounds__(kBlock)
-nearest_kernel(const float* __restrict__ tris, int n_tris,
-               const float* __restrict__ ox, const float* __restrict__ oy,
-               const float* __restrict__ oz, const float* __restrict__ dx,
-               const float* __restrict__ dy, const float* __restrict__ dz,
-               int n, float* __restrict__ t_out, int* __restrict__ idx_out,
-               float* __restrict__ bu_out, float* __restrict__ bv_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float rox = ox[i], roy = oy[i], roz = oz[i];
-  const float rdx = dx[i], rdy = dy[i], rdz = dz[i];
-  float t_best = kF32Max, bu = 0.0f, bv = 0.0f;
-  int idx_best = -1;
-  for (int k = 0; k < n_tris; ++k) {
-    const Hit h = Form::test(tris + k * Form::kFloats, rox, roy, roz, rdx,
-                             rdy, rdz);
-    if (h.ok && h.t < t_best) {
-      t_best = h.t;
-      idx_best = k;
-      bu = h.u;
-      bv = h.v;
-    }
-  }
-  t_out[i] = t_best;
-  idx_out[i] = idx_best;
-  bu_out[i] = bu;
-  bv_out[i] = bv;
+// Woop form, and det != 0. A triangle as three float4: v0x v0y v0z e1x |
+// e1y e1z e2x e2y | e2z nux nuy nuz (K3, from shared memory).
+__device__ __forceinline__ Hit mt_test(const float4& a, const float4& b,
+                                       const float4& c, float ox, float oy,
+                                       float oz, float dx, float dy,
+                                       float dz) {
+  const float v0x = a.x, v0y = a.y, v0z = a.z, e1x = a.w;
+  const float e1y = b.x, e1z = b.y, e2x = b.z, e2y = b.w;
+  const float e2z = c.x, nux = c.y, nuy = c.z, nuz = c.w;
+  const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+  const float s1x = dy * e2z - dz * e2y;
+  const float s1y = dz * e2x - dx * e2z;
+  const float s1z = dx * e2y - dy * e2x;
+  const float s2x = sy * e1z - sz * e1y;
+  const float s2y = sz * e1x - sx * e1z;
+  const float s2z = sx * e1y - sy * e1x;
+  const float det = s1x * e1x + s1y * e1y + s1z * e1z;
+  const float dn = dx * nux + dy * nuy + dz * nuz;
+  const float inv = 1.0f / det;
+  Hit h;
+  h.t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv;
+  h.u = (s1x * sx + s1y * sy + s1z * sz) * inv;
+  h.v = (s2x * dx + s2y * dy + s2z * dz) * inv;
+  h.ok = fabsf(dn) >= kParallelEps && det != 0.0f && h.t > 0.0f &&
+         h.u > 0.0f && h.v > 0.0f && 1.0f - h.u - h.v > 0.0f;
+  return h;
 }
 
 template <typename Form>
@@ -195,24 +176,63 @@ anyhit_kernel(const float* __restrict__ tris, int n_tris,
   hit_out[i] = blocked;
 }
 
-constexpr int kMtTile = 256;            // triangles per shared-memory tile
-constexpr int kMtTileF4 = 3 * kMtTile;  // float4 per tile
-constexpr int kMtRays = 2;              // rays per thread
+// One ray of a tiled kernel; a ray past n is traced as zeros and not
+// written.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  __device__ __forceinline__ static Ray load(
+      bool live, int i, const float* __restrict__ ox,
+      const float* __restrict__ oy, const float* __restrict__ oz,
+      const float* __restrict__ dx, const float* __restrict__ dy,
+      const float* __restrict__ dz) {
+    if (!live) return Ray{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    return Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+  }
+};
 
-// Copies tile `tile` of the MT table (at most kMtTile triangles; none past
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copies tile `tile` of the MT table (at most kTile triangles; none past
 // the last) into `dst` as 16-byte cp.async, and commits them as one group.
 __device__ __forceinline__ void stage_tile(float4* dst,
                                            const float4* __restrict__ tris,
                                            int tile, int n_tris) {
-  const int first = tile * kMtTile;
-  const int n_f4 = 3 * max(0, min(kMtTile, n_tris - first));
+  const int first = tile * kTile;
+  const int n_f4 = 3 * max(0, min(kTile, n_tris - first));
   const float4* src = tris + 3 * static_cast<size_t>(first);
   for (int j = threadIdx.x; j < n_f4; j += kBlock) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + j));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     shared_addr(dst + j)),
                  "l"(src + j));
   }
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Copies tile `tile` of the Woop table into `dst` as 4-byte cp.async,
+// float j of the flat tile to row j / 13, column j % 13 of rows of
+// kWoopRowF floats (the padding is never read), and commits one group.
+__device__ __forceinline__ void stage_woop_tile(float* dst,
+                                                const float* __restrict__ tris,
+                                                int tile, int n_tris) {
+  const int first = tile * kTile;
+  const int n_f = kWoopFloats * max(0, min(kTile, n_tris - first));
+  const float* src = tris + kWoopFloats * static_cast<size_t>(first);
+  for (int j = threadIdx.x; j < n_f; j += kBlock) {
+    const int row = j / kWoopFloats;
+    const int col = j - row * kWoopFloats;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     shared_addr(dst + row * kWoopRowF + col)),
+                 "l"(src + j));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until every group but the newest has landed, then for the block.
+__device__ __forceinline__ void wait_tile() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+  __syncthreads();
 }
 
 struct Best {
@@ -226,7 +246,73 @@ struct Best {
       v = h.v;
     }
   }
+  __device__ __forceinline__ void store(int i, float* __restrict__ t_out,
+                                        int* __restrict__ idx_out,
+                                        float* __restrict__ bu_out,
+                                        float* __restrict__ bv_out) const {
+    t_out[i] = t;
+    idx_out[i] = idx;
+    bu_out[i] = u;
+    bv_out[i] = v;
+  }
 };
+
+// K1's test of `r` against a staged row: r1 c1 | r2 c2 | r3 c3 as float4,
+// then nlen.
+__device__ __forceinline__ Hit woop_row_test(const float* row, const Ray& r) {
+  const float4 p1 = *reinterpret_cast<const float4*>(row);
+  const float4 p2 = *reinterpret_cast<const float4*>(row + 4);
+  const float4 p3 = *reinterpret_cast<const float4*>(row + 8);
+  return woop_test(p1.x, p1.y, p1.z, p1.w, p2.x, p2.y, p2.z, p2.w, p3.x,
+                   p3.y, p3.z, p3.w, row[12], r.ox, r.oy, r.oz, r.dx, r.dy,
+                   r.dz);
+}
+
+// K4's test: does triangle (a, b, c) block `r` short of `dist`? mt_test's
+// acceptance, t < dist and the FLOAT_EQUAL endpoint guard (BVH.hpp:184).
+__device__ __forceinline__ bool mt_blocks(const float4& a, const float4& b,
+                                          const float4& c, const Ray& r,
+                                          float dist) {
+  const Hit h = mt_test(a, b, c, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
+  return h.ok & (h.t < dist) & (fabsf(h.t - dist) >= kParallelEps);
+}
+
+// K1: the Woop nearest hit, two rays per thread against padded Woop tiles
+// in shared memory (see the head of this file).
+__global__ void __launch_bounds__(kBlock)
+woop_nearest_kernel(const float* __restrict__ tris, int n_tris,
+                    const float* __restrict__ ox, const float* __restrict__ oy,
+                    const float* __restrict__ oz, const float* __restrict__ dx,
+                    const float* __restrict__ dy, const float* __restrict__ dz,
+                    int n, float* __restrict__ t_out,
+                    int* __restrict__ idx_out, float* __restrict__ bu_out,
+                    float* __restrict__ bv_out) {
+  __shared__ __align__(16) float tile[2][kTile * kWoopRowF];
+  const int i0 = blockIdx.x * (kRays * kBlock) + threadIdx.x;
+  const int i1 = i0 + kBlock;
+  const bool live0 = i0 < n, live1 = i1 < n;
+  const Ray r0 = Ray::load(live0, i0, ox, oy, oz, dx, dy, dz);
+  const Ray r1 = Ray::load(live1, i1, ox, oy, oz, dx, dy, dz);
+  Best b0, b1;
+  const int n_tiles = (n_tris + kTile - 1) / kTile;
+  stage_woop_tile(tile[0], tris, 0, n_tris);
+  for (int t = 0; t < n_tiles; ++t) {
+    stage_woop_tile(tile[(t + 1) & 1], tris, t + 1, n_tris);
+    wait_tile();
+    const float* s = tile[t & 1];
+    const int base = t * kTile;
+    const int count = min(kTile, n_tris - base);
+#pragma unroll 4
+    for (int k = 0; k < count; ++k) {
+      const float* row = s + k * kWoopRowF;
+      b0.update(woop_row_test(row, r0), base + k);
+      b1.update(woop_row_test(row, r1), base + k);
+    }
+    __syncthreads();
+  }
+  if (live0) b0.store(i0, t_out, idx_out, bu_out, bv_out);
+  if (live1) b1.store(i1, t_out, idx_out, bu_out, bv_out);
+}
 
 // K3: the MT nearest hit, two rays per thread against triangle tiles in
 // shared memory (see the head of this file).
@@ -238,62 +324,79 @@ mt_nearest_kernel(const float4* __restrict__ tris, int n_tris,
                   int n, float* __restrict__ t_out, int* __restrict__ idx_out,
                   float* __restrict__ bu_out, float* __restrict__ bv_out) {
   __shared__ float4 tile[2][kMtTileF4];
-  // every thread stages tiles and meets the barriers; a ray past n is
-  // traced as zeros and not written
-  const int i0 = blockIdx.x * (kMtRays * kBlock) + threadIdx.x;
+  // every thread stages tiles and meets the barriers
+  const int i0 = blockIdx.x * (kRays * kBlock) + threadIdx.x;
   const int i1 = i0 + kBlock;
   const bool live0 = i0 < n, live1 = i1 < n;
-  const float ox0 = live0 ? ox[i0] : 0.0f, ox1 = live1 ? ox[i1] : 0.0f;
-  const float oy0 = live0 ? oy[i0] : 0.0f, oy1 = live1 ? oy[i1] : 0.0f;
-  const float oz0 = live0 ? oz[i0] : 0.0f, oz1 = live1 ? oz[i1] : 0.0f;
-  const float dx0 = live0 ? dx[i0] : 0.0f, dx1 = live1 ? dx[i1] : 0.0f;
-  const float dy0 = live0 ? dy[i0] : 0.0f, dy1 = live1 ? dy[i1] : 0.0f;
-  const float dz0 = live0 ? dz[i0] : 0.0f, dz1 = live1 ? dz[i1] : 0.0f;
+  const Ray r0 = Ray::load(live0, i0, ox, oy, oz, dx, dy, dz);
+  const Ray r1 = Ray::load(live1, i1, ox, oy, oz, dx, dy, dz);
   Best b0, b1;
-  const int n_tiles = (n_tris + kMtTile - 1) / kMtTile;
+  const int n_tiles = (n_tris + kTile - 1) / kTile;
   stage_tile(tile[0], tris, 0, n_tris);
   for (int t = 0; t < n_tiles; ++t) {
     // the next tile in flight (an empty group past the last); tile t's
     // group is then the only one that must have landed
     stage_tile(tile[(t + 1) & 1], tris, t + 1, n_tris);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
+    wait_tile();
     const float4* s = tile[t & 1];
-    const int base = t * kMtTile;
-    const int count = min(kMtTile, n_tris - base);
+    const int base = t * kTile;
+    const int count = min(kTile, n_tris - base);
     for (int k = 0; k < count; ++k) {
       const float4 a = s[3 * k], b = s[3 * k + 1], c = s[3 * k + 2];
-      b0.update(MollerTrumbore::test(a, b, c, ox0, oy0, oz0, dx0, dy0, dz0),
+      b0.update(mt_test(a, b, c, r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz),
                 base + k);
-      b1.update(MollerTrumbore::test(a, b, c, ox1, oy1, oz1, dx1, dy1, dz1),
+      b1.update(mt_test(a, b, c, r1.ox, r1.oy, r1.oz, r1.dx, r1.dy, r1.dz),
                 base + k);
     }
     // every thread is done with tile t before the next stage overwrites it
     __syncthreads();
   }
-  if (live0) {
-    t_out[i0] = b0.t;
-    idx_out[i0] = b0.idx;
-    bu_out[i0] = b0.u;
-    bv_out[i0] = b0.v;
-  }
-  if (live1) {
-    t_out[i1] = b1.t;
-    idx_out[i1] = b1.idx;
-    bu_out[i1] = b1.u;
-    bv_out[i1] = b1.v;
-  }
+  if (live0) b0.store(i0, t_out, idx_out, bu_out, bv_out);
+  if (live1) b1.store(i1, t_out, idx_out, bu_out, bv_out);
 }
 
-template <typename Form>
-int launch_nearest(const float* tris, int n_tris, const float* ox,
-                   const float* oy, const float* oz, const float* dx,
-                   const float* dy, const float* dz, int n, float* t_out,
-                   int* idx_out, float* bu_out, float* bv_out, void* stream) {
-  const int grid = (n + kBlock - 1) / kBlock;
-  nearest_kernel<Form><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      tris, n_tris, ox, oy, oz, dx, dy, dz, n, t_out, idx_out, bu_out, bv_out);
-  return static_cast<int>(cudaGetLastError());
+// K4: the MT any hit, two rays per thread against triangle tiles in shared
+// memory, with the per-warp and per-block exits (see the head of this
+// file).
+__global__ void __launch_bounds__(kBlock)
+mt_anyhit_kernel(const float4* __restrict__ tris, int n_tris,
+                 const float* __restrict__ ox, const float* __restrict__ oy,
+                 const float* __restrict__ oz, const float* __restrict__ dx,
+                 const float* __restrict__ dy, const float* __restrict__ dz,
+                 const float* __restrict__ dist, int n,
+                 int* __restrict__ hit_out) {
+  __shared__ float4 tile[2][kMtTileF4];
+  const int i0 = blockIdx.x * (kRays * kBlock) + threadIdx.x;
+  const int i1 = i0 + kBlock;
+  const bool live0 = i0 < n, live1 = i1 < n;
+  const Ray r0 = Ray::load(live0, i0, ox, oy, oz, dx, dy, dz);
+  const Ray r1 = Ray::load(live1, i1, ox, oy, oz, dx, dy, dz);
+  const float dist0 = live0 ? dist[i0] : 0.0f;
+  const float dist1 = live1 ? dist[i1] : 0.0f;
+  // settled: blocked, or past n
+  bool done0 = !live0, done1 = !live1;
+  const int n_tiles = (n_tris + kTile - 1) / kTile;
+  stage_tile(tile[0], tris, 0, n_tris);
+  for (int t = 0; t < n_tiles; ++t) {
+    stage_tile(tile[(t + 1) & 1], tris, t + 1, n_tris);
+    wait_tile();
+    const float4* s = tile[t & 1];
+    const int count = min(kTile, n_tris - t * kTile);
+#pragma unroll 4
+    for (int k = 0; k < count; ++k) {
+      if (__all_sync(0xffffffffu, done0 & done1)) break;
+      const float4 a = s[3 * k], b = s[3 * k + 1], c = s[3 * k + 2];
+      done0 |= mt_blocks(a, b, c, r0, dist0);
+      done1 |= mt_blocks(a, b, c, r1, dist1);
+    }
+    // the barrier before the next stage overwrites tile t, and the vote:
+    // once every ray of the block is settled, no further tile is staged
+    if (__syncthreads_and(done0 & done1)) break;
+  }
+  // an exit leaves the next tile's group in flight: let it land first
+  asm volatile("cp.async.wait_all;\n" ::);
+  if (live0) hit_out[i0] = done0;
+  if (live1) hit_out[i1] = done1;
 }
 
 template <typename Form>
@@ -307,6 +410,8 @@ int launch_anyhit(const float* tris, int n_tris, const float* ox,
   return static_cast<int>(cudaGetLastError());
 }
 
+int tiled_grid(int n) { return (n + kRays * kBlock - 1) / (kRays * kBlock); }
+
 }  // namespace
 
 // C entry points, bound with ctypes. Each launches on `stream`, does not
@@ -316,8 +421,11 @@ extern "C" int woop_nearest(const float* tris, int n_tris, const float* ox,
                             const float* dy, const float* dz, int n, float* t_out,
                             int* idx_out, float* bu_out, float* bv_out,
                             void* stream) {
-  return launch_nearest<Woop>(tris, n_tris, ox, oy, oz, dx, dy, dz, n, t_out,
-                              idx_out, bu_out, bv_out, stream);
+  woop_nearest_kernel<<<tiled_grid(n), kBlock, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      tris, n_tris, ox, oy, oz, dx, dy, dz, n, t_out, idx_out, bu_out,
+      bv_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int woop_anyhit(const float* tris, int n_tris, const float* ox,
@@ -333,8 +441,8 @@ extern "C" int mt_nearest(const float* tris, int n_tris, const float* ox,
                           const float* dy, const float* dz, int n, float* t_out,
                           int* idx_out, float* bu_out, float* bv_out,
                           void* stream) {
-  const int grid = (n + kMtRays * kBlock - 1) / (kMtRays * kBlock);
-  mt_nearest_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  mt_nearest_kernel<<<tiled_grid(n), kBlock, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(tris), n_tris, ox, oy, oz, dx, dy, dz,
       n, t_out, idx_out, bu_out, bv_out);
   return static_cast<int>(cudaGetLastError());
@@ -344,6 +452,9 @@ extern "C" int mt_anyhit(const float* tris, int n_tris, const float* ox,
                          const float* oy, const float* oz, const float* dx,
                          const float* dy, const float* dz, const float* dist,
                          int n, int* hit_out, void* stream) {
-  return launch_anyhit<MollerTrumbore>(tris, n_tris, ox, oy, oz, dx, dy, dz,
-                                       dist, n, hit_out, stream);
+  mt_anyhit_kernel<<<tiled_grid(n), kBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(tris), n_tris, ox, oy, oz, dx, dy, dz,
+      dist, n, hit_out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -61,7 +61,9 @@ class Clusters:
     ``woop`` when the tables are built: ``dataclasses.replace(clusters,
     woop=...)`` leaves ``bvh_rows`` as it was, so it may change the alphas
     (slot 13, which the transmittance kernel reads from ``woop``) and
-    nothing the BVH holds. ``n_real``, the number of real rows in
+    nothing the BVH holds. Construction checks that: a ``woop`` whose
+    first 12 floats of a row differ, bit for bit, from that row's copy in
+    ``bvh_rows`` raises. ``n_real``, the number of real rows in
     ``tri_idx``, is counted on construction (not a field), so the kernels'
     wrappers can hold ``bvh_virt`` to it without reading the device."""
     aabb: torch.Tensor       # [C, 8] f32: min(3), max(3), 2 pad
@@ -74,7 +76,38 @@ class Clusters:
     bvh_virt: torch.Tensor   # [R] i32 virtual id of each row
 
     def __post_init__(self):
-        object.__setattr__(self, "n_real", int((self.tri_idx >= 0).sum()))
+        n_real, moved = torch.stack([(self.tri_idx >= 0).sum(),
+                                     self._moved_rows()]).tolist()
+        if moved:
+            raise ValueError(
+                f"{moved} rows of woop differ from their copies in bvh_rows "
+                "in the geometry the BVH was built from: rebuild the tables "
+                "from the new woop (clusters_from_numpy), do not replace "
+                "woop alone")
+        object.__setattr__(self, "n_real", n_real)
+
+    def _moved_rows(self) -> torch.Tensor:
+        """The number of BVH rows whose 12 floats differ, bit for bit, from
+        the Woop row that ``bvh_virt`` names, as an int64 tensor; 0 where
+        the shapes, types or devices do not fit together (the kernels'
+        wrappers refuse those)."""
+        rows, virt, woop = self.bvh_rows, self.bvh_virt, self.woop
+        zero = torch.zeros((), dtype=torch.int64, device=self.tri_idx.device)
+        if (rows.dtype != torch.float32 or woop.dtype != torch.float32 or
+                rows.dim() != 2 or rows.shape[1] != ROW_F or
+                virt.dim() != 1 or virt.shape[0] != rows.shape[0] or
+                woop.dim() != 3 or woop.shape[1] * woop.shape[2] <
+                CLUSTER_SIZE * WOOP_F or not rows.device == virt.device ==
+                woop.device == zero.device or rows.shape[0] == 0 or
+                woop.shape[0] == 0):
+            return zero
+        woop_rows = woop.reshape(woop.shape[0], -1)[
+            :, :CLUSTER_SIZE * WOOP_F].reshape(-1, WOOP_F)
+        virt = virt.long()
+        fits = (virt >= 0) & (virt < woop_rows.shape[0])
+        src = woop_rows[virt.clamp(0, woop_rows.shape[0] - 1), :ROW_F]
+        differ = (src.view(torch.int32) != rows.view(torch.int32)).any(dim=1)
+        return (differ & fits).sum()
 
 
 def woop_rows(verts: np.ndarray):

@@ -10,9 +10,11 @@ distance:
 - Moller-Trumbore (MT): ``tri_intersect_mt`` / ``tri_occluded_mt`` replace
   ``::_kernel`` and ``::_kernel_anyhit`` (the JAX package's
   ``PALLAS_IMPL = "mt"``), over the flat float32 [T * 12] table of
-  ``pack_triangles``. The MT nearest hit reads its table as 16-byte
-  ``float4``, so ``tri_intersect_mt`` refuses a table that does not start
-  on a 16-byte boundary (a view at an odd offset into a larger tensor).
+  ``pack_triangles``. The MT kernels read their table as 16-byte
+  ``float4``, so ``tri_intersect_mt`` and ``tri_occluded_mt`` refuse a
+  table that does not start on a 16-byte boundary (a view at an odd
+  offset into a larger tensor). The Woop kernels take a table at any
+  float offset.
 
 On a CUDA tensor each wrapper launches its kernel from
 ``csrc/dense_intersect.cu`` or raises; on a CPU tensor it runs the plain
@@ -182,18 +184,24 @@ def tri_occluded(table, ox, oy, oz, dx, dy, dz, dist):
                    table, ox, oy, oz, dx, dy, dz, dist)
 
 
+def _refuse_unaligned(table):
+    if table.data_ptr() % 16:
+        raise ValueError("the MT table must start on a 16-byte boundary "
+                         "(the kernels read each triangle as 3 float4)")
+
+
 def tri_intersect_mt(table, ox, oy, oz, dx, dy, dz):
     """``tri_intersect`` over an MT table (``pack_triangles``), which must
     start on a 16-byte boundary."""
-    if table.data_ptr() % 16:
-        raise ValueError("the MT table must start on a 16-byte boundary "
-                         "(the kernel reads each triangle as 3 float4)")
+    _refuse_unaligned(table)
     return _nearest("mt_nearest", "mt_nearest", MT_FLOATS,
                     tri_intersect_mt_plain, table, ox, oy, oz, dx, dy, dz)
 
 
 def tri_occluded_mt(table, ox, oy, oz, dx, dy, dz, dist):
-    """``tri_occluded`` over an MT table (``pack_triangles``)."""
+    """``tri_occluded`` over an MT table (``pack_triangles``), which must
+    start on a 16-byte boundary."""
+    _refuse_unaligned(table)
     return _anyhit("mt_anyhit", "mt_anyhit", MT_FLOATS, tri_occluded_mt_plain,
                    table, ox, oy, oz, dx, dy, dz, dist)
 

@@ -2,7 +2,7 @@
 shapes, in whichever checkout of the port is first on the import path.
 
     PYTHONPATH=<checkout> python3 tuturenderer_tpu_torch/tools/time_kernels.py \
-        [--label NAME] [--out FILE]
+        [--label NAME] [--out FILE] [--dense-only]
 
 It needs a CUDA device and nvcc; the kernels build from ``<checkout>``'s
 sources. It calls only the kernels' public wrappers, the scene presets and
@@ -26,8 +26,14 @@ the table whose alphas are drawn from {0.3, 0.85, 1.0}. Each time is
 ``utils/timing.py``'s ``device_ms``, read twice in turns over the
 kernels; beside it, a checksum of the outputs (the sum of t over hits,
 the count of blocked rays, the sum of the transmittances), equal across
-checkouts when the kernels compute the same. The last line is one JSON
-object, also written to ``--out``.
+checkouts when the kernels compute the same. For the dense kernels it
+also gives the ray/triangle tests the data needs (every pair for a
+nearest hit; for an any hit, each ray's tests up to its first blocker)
+and the warp-instruction slots per test that the time takes at
+the SM clock nvidia-smi reads under load (4 schedulers per SM, 32 tests
+per slot), and it prints nvcc's register and spill lines for the
+libraries it built. ``--dense-only`` times K1-K4 alone. The last line is
+one JSON object, also written to ``--out``.
 """
 from __future__ import annotations
 
@@ -56,7 +62,6 @@ def dense_sets(dev):
     bounce rays from random points inside the box) and a 4095-triangle
     soup at 65,536 rays, from fixed seeds."""
     from tuturenderer_tpu_torch.camera import primary_ray
-    from tuturenderer_tpu_torch.scene.data import SceneBuilder
     from tuturenderer_tpu_torch.scene.presets import simple_box
     gen = torch.Generator(device=dev).manual_seed(0)
     scene, cam = simple_box(1024, 1024, device=dev)
@@ -70,38 +75,67 @@ def dense_sets(dev):
     d_b = _unit(half, gen, dev)
     o = torch.cat([torch.stack(list(o_cam), 1), o_b])
     d = torch.cat([torch.stack(list(d_cam), 1), d_b])
-    r = np.random.RandomState(7)
-    b = SceneBuilder()
-    m = b.add_material()
-    centers = r.randn(4095, 3) * 2.0
-    b.add_triangles((centers[:, None, :] + 0.6 * r.randn(4095, 3, 3))
-                    .astype(np.float32), None, None, m)
-    soup = b.build(device=dev)
     o_s = torch.randn((65536, 3), generator=gen, device=dev) * 3.0
     d_s = _unit(65536, gen, dev)
     return {"simple_box 1M": (scene, cam, _cols(o) + _cols(d)),
-            "soup 4095 x 65536": (soup, None, _cols(o_s) + _cols(d_s))}
+            "soup 4095 x 65536": (soup(4095, dev), None,
+                                  _cols(o_s) + _cols(d_s))}
+
+
+def soup(n_tris: int, dev, seed: int = 7):
+    """A scene of ``n_tris`` random triangles: centres drawn from
+    N(0, 2^2) per axis, corners 0.6 N(0, 1) around them, from numpy's
+    ``RandomState(seed)``."""
+    from tuturenderer_tpu_torch.scene.data import SceneBuilder
+    r = np.random.RandomState(seed)
+    b = SceneBuilder()
+    m = b.add_material()
+    centers = r.randn(n_tris, 3) * 2.0
+    b.add_triangles((centers[:, None, :] + 0.6 * r.randn(n_tris, 3, 3))
+                    .astype(np.float32), None, None, m)
+    return b.build(device=dev)
+
+
+def anyhit_tests(tile, floats: int, table, rays, dist,
+                 chunk: int = 8192) -> int:
+    """The ray/triangle tests a serial any hit makes: per ray, up to and
+    including its first blocker in index order, or every triangle.
+    ``tile`` is a plain per-triangle test (``_woop_tile``, ``_mt_tile``)."""
+    from tuturenderer_tpu_torch.ops.cuda.intersect import PARALLEL_EPS
+    tri = table.reshape(-1, floats)
+    total = 0
+    for lo in range(0, rays[0].shape[0], chunk):
+        t, _, _, ok = tile(tri, *[c[lo:lo + chunk, None] for c in rays])
+        d = dist[lo:lo + chunk, None]
+        ok = ok & (t < d) & ((t - d).abs() >= PARALLEL_EPS)
+        first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1,
+                            tri.shape[0])
+        total += int(first.sum())
+    return total
 
 
 def dense_calls(dev) -> dict:
-    """{(kernel, shape): (call, checksum)} of K1-K4."""
+    """{(kernel, shape): (call, checksum, ray/triangle tests)} of K1-K4,
+    the any hits at twice the hit distance."""
     from tuturenderer_tpu_torch.ops.cuda import intersect as K
     forms = (("K1", "K2", K.pack_triangles_woop, K.tri_intersect,
-              K.tri_occluded),
+              K.tri_occluded, K._woop_tile, 13),
              ("K3", "K4", K.pack_triangles, K.tri_intersect_mt,
-              K.tri_occluded_mt))
+              K.tri_occluded_mt, K._mt_tile, 12))
     calls = {}
     for shape, (scene, _, rays) in dense_sets(dev).items():
-        for k_near, k_occ, pack, near, occ in forms:
+        for k_near, k_occ, pack, near, occ, tile, floats in forms:
             table = pack(scene)
             t, idx, _, _ = near(table, *rays)
             dist = torch.where(idx >= 0, t, torch.full_like(t, 10.0)) * 2.0
             calls[(k_near, shape)] = (
                 lambda n=near, tb=table, r=rays: n(tb, *r),
-                lambda out: float(out[0][out[1] >= 0].double().sum()))
+                lambda out: float(out[0][out[1] >= 0].double().sum()),
+                rays[0].shape[0] * (table.shape[0] // floats))
             calls[(k_occ, shape)] = (
                 lambda o=occ, tb=table, r=rays, dd=dist: o(tb, *r, dd),
-                lambda out: float(out.sum()))
+                lambda out: float(out.sum()),
+                anyhit_tests(tile, floats, table, rays, dist))
     return calls
 
 
@@ -158,47 +192,97 @@ def cluster_calls(dev) -> dict:
         near, occ = wavefront(scene, cam)
         calls[("K5", shape)] = (
             lambda c=cl, r=near: C.cluster_intersect(c, *r),
-            lambda out: float(out[0][out[1] >= 0].double().sum()))
+            lambda out: float(out[0][out[1] >= 0].double().sum()), None)
         calls[("K6", shape)] = (
             lambda c=cl, r=occ: C.cluster_occluded(c, *r),
-            lambda out: float(out.sum()))
+            lambda out: float(out.sum()), None)
         calls[("K7", shape)] = (
             lambda c=alpha_cl, r=occ: C.cluster_transmittance(c, *r),
-            lambda out: float(out.double().sum()))
+            lambda out: float(out.double().sum()), None)
     return calls
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz(fn, reads: int = 5, burst: int = 300) -> float:
+    """The median SM clock nvidia-smi reads while the card runs ``fn``:
+    each read is taken with ``burst`` calls queued behind it."""
+    mhz = []
+    for _ in range(reads):
+        for _ in range(burst):
+            fn()
+        mhz.append(float(_smi("clocks.sm").split()[0]))
+        torch.cuda.synchronize()
+    return float(np.median(mhz))
+
+
+def ptxas_lines(name: str) -> list:
+    """The register and spill lines nvcc printed for ``csrc/<name>.cu``,
+    where this process built it."""
+    from tuturenderer_tpu_torch.ops.cuda import build
+    if name not in build.BUILD_LOG:
+        return []
+    return [line.strip() for line in build.BUILD_LOG[name][1].splitlines()
+            if "registers" in line or "spill" in line or
+            "Compiling" in line]
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--label", default="", help="names the checkout")
     p.add_argument("--out", default="", help="also write the JSON here")
+    p.add_argument("--dense-only", action="store_true",
+                   help="time K1-K4 alone")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
+    from tuturenderer_tpu_torch.ops.cuda import build
     from tuturenderer_tpu_torch.utils.timing import device_ms
     import tuturenderer_tpu_torch
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
     root = os.path.dirname(os.path.dirname(tuturenderer_tpu_torch.__file__))
     print(f"time_kernels {args.label}: the port at {root}; {smi}",
           flush=True)
-    calls = {**dense_calls(dev), **cluster_calls(dev)}
-    sums = {key: check(call()) for key, (call, check) in calls.items()}
+    build.load_all(("dense_intersect",) if args.dense_only else
+                   ("dense_intersect", "bvh_walk"))
+    for name in ("dense_intersect", "bvh_walk"):
+        for line in ptxas_lines(name):
+            print(f"  {name}.cu: {line}", flush=True)
+    calls = dense_calls(dev)
+    if not args.dense_only:
+        calls.update(cluster_calls(dev))
+    sums = {key: check(call()) for key, (call, check, _) in calls.items()}
     turns = {key: [] for key in calls}
     for key in [*calls, *reversed(calls)]:
         turns[key].append(device_ms(calls[key][0]))
+    # the SM clock under load (the soup's MT nearest hit, ~1 ms a launch)
+    mhz = sm_clock_mhz(calls[("K3", "soup 4095 x 65536")][0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"  SM clock under load: {mhz:.0f} MHz (max "
+          f"{_smi('clocks.max.sm')}); {sms} SMs", flush=True)
     rows = []
     for (kernel, shape), ms in turns.items():
         mean = sum(ms) / len(ms)
+        tests = calls[(kernel, shape)][2]
+        # warp-instruction slots (4 schedulers per SM) per 32 tests
+        slots = (mean * 1e-3 * sms * 4 * mhz * 1e6 / (tests / 32)
+                 if tests else None)
         rows.append({"kernel": kernel, "shape": shape, "ms": mean,
-                     "turns": ms, "checksum": sums[(kernel, shape)]})
+                     "turns": ms, "checksum": sums[(kernel, shape)],
+                     "tests": tests, "slots_per_test": slots})
+        per_test = f"; {tests} tests, {slots:.1f} warp-instruction slots per test" \
+            if tests else ""
         print(f"  {kernel} {shape}: device ms {ms[0]:.4f} {ms[1]:.4f} "
-              f"(mean {mean:.4f}); checksum {sums[(kernel, shape)]!r}",
-              flush=True)
-    result = {"label": args.label, "device": smi, "kernels": rows}
+              f"(mean {mean:.4f}); checksum {sums[(kernel, shape)]!r}"
+              f"{per_test}", flush=True)
+    result = {"label": args.label, "device": smi, "sm_mhz": mhz,
+              "kernels": rows}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)
