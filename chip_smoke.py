@@ -21,8 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    events around back-to-back calls, the stream held while the host
    enqueues them), at simple_box and at the soup; then the tiled kernels'
    ragged edges (1 to 1,001 rays against soups of 1 to 4,095 triangles)
-   and a block-exit set for the any hits (blocks of 512 rays all blocked
-   in the first tile, never blocked, and mixed);
+   and a block-exit set for both any hits, K2 and K4 (rays blocked in the
+   first tile, never blocked, and mixed, by whole blocks), each timed
+   there;
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
    on the card, with the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
@@ -60,9 +61,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     (``tests/data/torch_grad_*_jax_ref.npz``, made by
     ``tests/data/make_torch_grad_refs.py``);
 13. the visit-walk probe (K8): ``tools/proto_visit.py``'s ``main`` (its two
-    scenarios at 1,024 clusters and 64 tiles), then each scenario, and one
-    with dead lanes, against the plain version, with the device time of
-    its launch alone and of ``run`` with its synchronising input check.
+    scenarios at 1,024 clusters and 64 tiles), then each scenario and the
+    special planes (``proto_visit.special_planes``), with and without dead
+    lanes and at 3 tiles, against the plain version, with the device time
+    of its launch alone (the full walk and the early exit) and of ``run``
+    with its synchronising input check, the SMs the launch occupies and
+    its warp-instruction slots per plane test at the SM clock under load.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -386,12 +390,14 @@ def ragged_sets(dev, report: dict):
 
 
 def block_exit_set(dev):
-    """The any hits where whole blocks of 512 rays settle at once: at the
-    4095-triangle soup (16 tiles), a block aimed at triangles 0-255 with no
-    distance limit (all blocked in the first tile), a block at dist 0
-    (never blocked: every tile), a block that mixes them, a ragged last
-    block."""
+    """The any hits where whole blocks of rays settle at once: at the
+    4095-triangle soup (16 tiles), rays 0-511 aimed at triangles 0-255
+    with no distance limit (all blocked in the first tile), rays 512-1023
+    at dist 0 (never blocked: every tile), a range that mixes them, rays
+    1536-2047 blocked again, a ragged mixed end; each any hit timed
+    there."""
     from tuturenderer_tpu_torch.tools.time_kernels import soup
+    from tuturenderer_tpu_torch.utils.timing import device_ms
     scene = soup(4095, dev, seed=1)
     verts = torch.stack([torch.stack(list(v), 1)
                          for v in (scene.tv0, scene.tv1, scene.tv2)], 1)
@@ -413,8 +419,9 @@ def block_exit_set(dev):
         n_diff = int((got != want).sum())
         blocks = [f"{want[lo:lo + 512].float().mean().item():.3f}"
                   for lo in range(0, n, 512)]
-        log(f"  block exits [{f['labels'][1]}]: blocked per block "
-            f"{' '.join(blocks)}, disagree={n_diff}")
+        ms = device_ms(lambda: f["occ"](table, *rays, dist))
+        log(f"  block exits [{f['labels'][1]}]: blocked per 512 rays "
+            f"{' '.join(blocks)}, disagree={n_diff}; {ms:.4f} ms")
         if n_diff:
             raise AssertionError(f"{f['labels'][1]} block exits: any hit "
                                  f"disagrees on {n_diff} rays")
@@ -1166,6 +1173,7 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
     log("== phase 13: the visit-walk probe (K8)")
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
     from tuturenderer_tpu_torch.tools import proto_visit as P
+    from tuturenderer_tpu_torch.tools import time_kernels as TK
     from tuturenderer_tpu_torch.utils.timing import device_ms
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -1175,35 +1183,42 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
     check_launches(launches, {"proto_visit": 2 * (1 + reps)})
 
     err = 0.0
-    for name in ("early", "full"):
-        for dead in (False, True):
-            a = P.scenario(name, nc, n_tiles)
-            if dead:
-                a["live"][P.TILE:2 * P.TILE:2] = 0.0    # tile 1 half dead
-                a["live"][3 * P.TILE:4 * P.TILE] = 0.0  # tile 3 wholly dead
-            args = P.tensors(a, dev)
-            t, idx = P.run(*args, nc=nc)
-            tp, ip, groups = P.walk_plain(*args, nc=nc)
-            torch.cuda.synchronize()
-            t_eq = bool((t == tp).all())
-            n_idx = int((idx != ip).sum())
-            log(f"  {name}{' with dead lanes' if dead else ''}: t bit-equal="
-                f"{t_eq} idx differs={n_idx}; groups walked per tile "
-                f"{sorted(set(groups.tolist()))}")
-            if not t_eq or n_idx:
-                raise AssertionError(f"K8 {name}: kernel and plain differ")
-            err = max(err, (t - tp).abs().max().item())
-            live_tile = slice(0, P.TILE)
-            P.check(name, t[live_tile], idx[live_tile])
+    cases = [(name, n_tiles, dead) for name in ("early", "full", "special")
+             for dead in (False, True)] + \
+        [(name, 3, True) for name in ("early", "full", "special")]
+    for name, tiles, dead in cases:
+        a = P.scenario(name, nc, tiles)
+        if dead:
+            a["live"][:P.TILE:3] = 0.0                  # a third of tile 0
+            a["live"][P.TILE:2 * P.TILE:2] = 0.0        # tile 1 half dead
+            a["live"][(tiles - 1) * P.TILE:] = 0.0      # the last wholly
+        args = P.tensors(a, dev)
+        t, idx = P.run(*args, nc=nc)
+        tp, ip, groups = P.walk_plain(*args, nc=nc)
+        torch.cuda.synchronize()
+        t_eq = bool((t == tp).all())
+        n_idx = int((idx != ip).sum())
+        log(f"  {name} x {tiles} tiles{' with dead lanes' if dead else ''}: "
+            f"t bit-equal={t_eq} idx differs={n_idx}; groups walked per "
+            f"tile {sorted(set(groups.tolist()))}")
+        if not t_eq or n_idx:
+            raise AssertionError(f"K8 {name}: kernel and plain differ")
+        err = max(err, (t - tp).abs().max().item())
+        if name != "special":
+            P.check(name, t[:P.TILE], idx[:P.TILE])
 
-    # time, plane tests and bound at the full walk, the probe's heavy case
+    # time, plane tests, issue slots and bound at the full walk, the
+    # probe's heavy case, and the early exit's time
     a = P.scenario("full", nc, n_tiles)
     args = P.tensors(a, dev)
+    launch = lambda a=args: P._launch(a[0], a[1], a[2:9], a[9], nc, n_tiles)
     # run checks its visit lists on the host, so each call synchronises:
     # the kernel's time is its launch's alone, held; run's own time (hold 0)
     # and the profiler's reading of run's kernels are logged beside it
-    ms = device_ms(lambda: P._launch(args[0], args[1], args[2:9], args[9],
-                                     nc, n_tiles), reps=10, warm=2)
+    ms = device_ms(launch, reps=10, warm=2)
+    early = P.tensors(P.scenario("early", nc, n_tiles), dev)
+    early_ms = device_ms(lambda: P._launch(early[0], early[1], early[2:9],
+                                           early[9], nc, n_tiles))
     run_ms = device_ms(lambda: P.run(*args, nc=nc), reps=10, warm=2,
                        hold_ms=0)
     prof_ms, kept, want = profiler_ms(lambda: P.run(*args, nc=nc),
@@ -1211,16 +1226,24 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
     plain_ms = device_ms(lambda: P.run_plain(*args, nc=nc), reps=2, warm=1,
                          hold_ms=0)
     _, _, groups = P.walk_plain(*args, nc=nc)
-    tests = float(groups.sum()) * P.G * P.CS * P.TILE
+    tests = TK.visit_tests(args[1], groups, nc)
     n = n_tiles * P.TILE
     walked = torch.cat([args[0].reshape(n_tiles, nc)[i, :int(g) * P.G]
                         for i, g in enumerate(groups.tolist())])
     n_bytes = n * (7 * 4 + 8) + n_tiles * nc * 8 + \
         torch.unique(walked).numel() * P.CS * 4 * 4
+    ids = P.sm_ids(args[0], args[1], args[2:9], args[9], nc, n_tiles)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = TK.sm_clock_mhz(launch, burst=max(5, int(300 / ms)))
+    slots = ms * 1e-3 * n_sms * 4 * mhz * 1e6 / (tests / 32)
     log(f"  full walk: {n} rays x {nc} clusters: device ms kernel={ms:.4f} "
         f"plain={plain_ms:.4f}; run with its check {run_ms:.4f} (events, "
         f"unheld), its kernel under the profiler {prof_ms:.4f} ({kept} of "
-        f"{want} records); plane tests/ray={tests / n:.0f}")
+        f"{want} records); plane tests/ray={tests / n:.0f}; early exit "
+        f"{early_ms:.4f} ms")
+    log(f"  full walk: {ids.numel()} CTAs on {torch.unique(ids).numel()} of "
+        f"{n_sms} SMs; SM clock under load {mhz:.0f} MHz; "
+        f"{slots:.1f} warp-instruction slots per plane test")
     b_ms, b_by = bound("K8 full walk", n_bytes, tests, FLOP_PER_PLANE)
     return launches, err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                            "bound_by": b_by}

@@ -290,11 +290,11 @@ SHADOW_DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
 @pytest.mark.parametrize("n_tris", [1, 12, 255, 256, 257, 300, 4095])
 @pytest.mark.parametrize("n_rays", [1, 255, 257, 511, 513, 1001])
 def test_tiled_kernels_ragged_edges(dev, n_rays, n_tris):
-    """K1 (Woop nearest hit) and K4 (MT any hit) trace two rays per thread,
-    512 per block, against tiles of 256 triangles: ray counts below,
-    around and off a block, tables of one triangle, of a tile and around
-    it, and of 16 tiles, bit-equal to the plain versions at shadow
-    distances around each hit."""
+    """K1 (Woop nearest hit), K2 (Woop any hit) and K4 (MT any hit) trace
+    one or two rays per thread, 256 or 512 per block, against tiles of 256
+    triangles: ray counts below, around and off a block, tables of one
+    triangle, of a tile and around it, and of 16 tiles, bit-equal to the
+    plain versions at shadow distances around each hit."""
     scene, o, d = _soup(dev, n_tris=n_tris, n_rays=n_rays)
     rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
     woop, mt = K.pack_triangles_woop(scene), K.pack_triangles(scene)
@@ -308,18 +308,20 @@ def test_tiled_kernels_ragged_edges(dev, n_rays, n_tris):
         dist = t_ref * scale + off
         torch.testing.assert_close(K.tri_occluded_mt(mt, *rays, dist),
                                    K.tri_occluded_mt_plain(mt, *rays, dist))
+        torch.testing.assert_close(K.tri_occluded(woop, *rays, dist),
+                                   K.tri_occluded_plain(woop, *rays, dist))
     got = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
     want_launches = dict.fromkeys(K.LAUNCHES, 0)
-    want_launches.update(nearest=1, mt_anyhit=len(SHADOW_DISTS))
+    want_launches.update(nearest=1, anyhit=len(SHADOW_DISTS),
+                         mt_anyhit=len(SHADOW_DISTS))
     assert got == want_launches
 
 
-def test_mt_anyhit_block_exits(dev):
-    """K4's exits at 4,095 triangles (16 tiles): a block of 512 rays all
-    blocked in the first tile (rays aimed at the centroids of triangles
-    0-255, no distance limit) leaves after it; a block never blocked
-    (dist 0) walks every tile; a block that mixes the two, and a ragged
-    last block, walk on for their unblocked rays."""
+def _block_exit_set(dev):
+    """At 4,095 triangles (16 tiles): rays 0-511 aimed at the centroids of
+    triangles 0-255 with no distance limit (blocked in the first tile),
+    rays 512-1023 never blocked (dist 0, every tile), a range that mixes
+    the two, rays 1536-2047 blocked again and a ragged mixed end."""
     scene, _, _ = _soup(dev, n_tris=4095, n_rays=1)
     verts = torch.stack([torch.stack(list(v), 1)
                          for v in (scene.tv0, scene.tv1, scene.tv2)], 1)
@@ -334,11 +336,32 @@ def test_mt_anyhit_block_exits(dev):
     dist[512:1024] = 0.0
     dist[1024 + 1:1536:2] = 0.0
     dist[2048 + 1::3] = 0.0
-    table = K.pack_triangles(scene)
-    want = K.tri_occluded_mt_plain(table, *rays, dist)
-    torch.testing.assert_close(K.tri_occluded_mt(table, *rays, dist), want)
+    return scene, rays, dist
+
+
+def _check_block_exits(occ, occ_plain, table, rays, dist):
+    want = occ_plain(table, *rays, dist)
+    torch.testing.assert_close(occ(table, *rays, dist), want)
     assert bool(want[:512].all()) and not bool(want[512:1024].any())
     assert bool(want[1024:1536:2].all()) and bool(want[1536:2048].all())
+
+
+def test_mt_anyhit_block_exits(dev):
+    """K4's exits on the block-exit set: its blocks of 512 rays all
+    blocked in the first tile leave after it; a block never blocked walks
+    every tile; a block that mixes the two, and a ragged last block, walk
+    on for their unblocked rays."""
+    scene, rays, dist = _block_exit_set(dev)
+    _check_block_exits(K.tri_occluded_mt, K.tri_occluded_mt_plain,
+                       K.pack_triangles(scene), rays, dist)
+
+
+def test_woop_anyhit_block_exits(dev):
+    """K2's exits on the same set (K2's blocks hold 256 rays a ray per
+    thread, 512 at two)."""
+    scene, rays, dist = _block_exit_set(dev)
+    _check_block_exits(K.tri_occluded, K.tri_occluded_plain,
+                       K.pack_triangles_woop(scene), rays, dist)
 
 
 def test_dense_kernels_on_special_rays(dev):
@@ -419,16 +442,34 @@ def test_render_diff_goes_through_the_kernels(dev, monkeypatch, mesh):
     assert got == want
 
 
-@pytest.mark.parametrize("name", ["early", "full"])
-def test_visit_walk_equals_plain_version(dev, name):
-    a = P.scenario(name, 128, 4)
-    a["live"][P.TILE:2 * P.TILE:2] = 0.0      # tile 1 half dead
-    a["live"][3 * P.TILE:] = 0.0              # tile 3 wholly dead
+@pytest.mark.parametrize("n_tiles", [1, 3, 65])
+@pytest.mark.parametrize("name", ["early", "full", "special"])
+def test_visit_walk_equals_plain_version(dev, name, n_tiles):
+    """K8 (a tile as a cluster of CTAs) bit-equal to the plain walk, with
+    dead lanes: every third lane of tile 0, tile 1 half dead ("special":
+    wholly), the last tile wholly dead; at 1 tile, 3 and 65 (more CTAs
+    than the card has SMs)."""
+    a = P.scenario(name, 128, n_tiles)
+    a["live"][:P.TILE:3] = 0.0
+    if n_tiles > 1:
+        a["live"][P.TILE:2 * P.TILE:2] = 0.0
+        a["live"][(n_tiles - 1) * P.TILE:] = 0.0
     args = P.tensors(a, dev)
     before = K.LAUNCHES["proto_visit"]
     t, idx = P.run(*args, nc=128)
     tp, ip = P.run_plain(*args, nc=128)
     torch.testing.assert_close(t, tp, rtol=0, atol=0)
     torch.testing.assert_close(idx, ip, rtol=0, atol=0)
-    P.check(name, t[:P.TILE], idx[:P.TILE])
+    if name != "special":
+        P.check(name, t[:P.TILE], idx[:P.TILE])
     assert K.LAUNCHES["proto_visit"] == before + 1
+
+
+def test_visit_walk_reports_its_sms(dev):
+    """``sm_ids`` gives the SM of every CTA of a launch, each tile a
+    cluster of CTAs."""
+    args = P.tensors(P.scenario("early", 128, 64), dev)
+    ids = P.sm_ids(args[0], args[1], args[2:9], args[9], 128, 64)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ids.shape[0] % 64 == 0 and ids.shape[0] >= 128
+    assert bool((ids >= 0).all()) and bool((ids < n_sms).all())

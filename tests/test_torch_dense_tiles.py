@@ -1,15 +1,17 @@
 """The dense kernels' contract on edge cases, and the loops of the tiled
-kernels K1 (Woop nearest hit), K3 (MT nearest hit) and K4 (MT any hit) in
-``tuturenderer_tpu_torch/csrc/dense_intersect.cu``, on the CPU.
+kernels K1 (Woop nearest hit), K2 (Woop any hit), K3 (MT nearest hit) and
+K4 (MT any hit) in ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``, on
+the CPU.
 
 The tiled kernels test one triangle at a time in index order (two rays
 per thread, tiles of 256 triangles). A nearest hit updates its best on a
 strict t < best; the plain versions take the first minimum of tiles of
 512 triangles and a strict < across them: ``by_steps`` mirrors the
 kernels' loop and is held to the plain versions, exact t ties included.
-K4 stops a warp once its 64 rays are settled and a block once its 512
-are: ``anyhit_walk`` mirrors those exits and counts the triangles each
-warp tests, on a set where whole blocks settle in the first tile.
+The any hits K2 (Woop) and K4 (MT) stop a warp once its 64 rays are
+settled and a block once its 512 are: ``anyhit_walk`` mirrors those
+exits and counts the triangles each warp tests, on a set where whole
+blocks settle in the first tile.
 
 The special rays (``torch_port_util.special_rays``: in a triangle's
 plane, det and w_d = +0 and -0, inf and NaN components, subnormal
@@ -143,14 +145,16 @@ def test_steps_in_index_order_give_the_plain_nearest_hit(special, form):
     assert bool((want[1] == 0).any()) and not bool((want[1] == 3).any())
 
 
-def anyhit_walk(first: np.ndarray, n_tris: int):
-    """K4's exits over the first blocker of each ray (``n_tris`` where none
-    blocks): rays in blocks of 512, ray i and i + 256 on one thread, so
-    warp w of a block holds rays 32w..32w+31 and 256+32w..256+32w+31;
-    tiles of 256 triangles in index order. A warp stops testing once all
-    its rays are settled (blocked, or past n), a block stops staging tiles
-    once all its rays are. Returns (blocked [N], triangles each warp
-    tested [blocks, 8])."""
+def anyhit_walk(first: np.ndarray, n_tris: int, vote_every: int = 1):
+    """The any hits' exits over the first blocker of each ray (``n_tris``
+    where none blocks): rays in blocks of 512, ray i and i + 256 on one
+    thread, so warp w of a block holds rays 32w..32w+31 and
+    256+32w..256+32w+31; tiles of 256 triangles in index order. A warp
+    votes once per ``vote_every`` triangles (a step past a tile's last
+    triangle tests the last one again) and stops once all its rays are
+    settled (blocked, or past n); a block stops staging tiles once all
+    its rays are. Returns (blocked [N], tests each warp made [blocks,
+    8])."""
     n = first.shape[0]
     n_blocks = -(-n // 512)
     f = np.full(n_blocks * 512, -1, np.int64)     # past n: settled
@@ -162,18 +166,19 @@ def anyhit_walk(first: np.ndarray, n_tris: int):
     for base in range(0, n_tris, 256):
         count = min(256, n_tris - base)
         staging = block_last >= base               # not yet all settled
-        steps = np.clip(warp_last + 1 - base, 0, count)
-        tested += np.where(staging[:, None], steps, 0)
+        steps = -(-np.clip(warp_last + 1 - base, 0, count) // vote_every)
+        tested += np.where(staging[:, None], steps * vote_every, 0)
     return first < n_tris, tested
 
 
-def _first_blocker(table, rays, dist, chunk=512):
+def _first_blocker(form, table, rays, dist, chunk=512):
     """Each ray's first blocking triangle in index order, T if none."""
-    tri = table.reshape(-1, K.MT_FLOATS)
+    _, tile, floats, _, _ = FORMS[form]
+    tri = table.reshape(-1, floats)
     n_tris = tri.shape[0]
     first = torch.full((rays[0].shape[0],), n_tris)
     for lo in reversed(range(0, n_tris, chunk)):
-        t, _, _, ok = K._mt_tile(tri[lo:lo + chunk], *_pairs(rays))
+        t, _, _, ok = tile(tri[lo:lo + chunk], *_pairs(rays))
         d = dist[:, None]
         ok = ok & (t < d) & ((t - d).abs() >= EPS)
         first = torch.where(ok.any(dim=1), lo + ok.int().argmax(dim=1),
@@ -181,11 +186,15 @@ def _first_blocker(table, rays, dist, chunk=512):
     return first.numpy()
 
 
-def test_anyhit_exits_settle_whole_blocks():
-    """K4's exits at 4,095 triangles (16 tiles): a block whose 512 rays are
-    aimed at triangles 0-255 with no distance limit tests one tile, a
-    block at dist 0 tests all 16, a mixed block walks on for its free
-    rays; the rays blocked are the plain version's."""
+@pytest.mark.parametrize("form,vote_every", [("mt", 1), ("woop", 4)],
+                         ids=["K4", "K2"])
+def test_anyhit_exits_settle_whole_blocks(form, vote_every):
+    """The any hits' exits at 4,095 triangles (16 tiles), K4 voting per
+    triangle, K2 per 4 triangles: a block whose 512 rays are aimed at
+    triangles 0-255 with no distance limit tests one tile, a block at
+    dist 0 tests all 16 (4,095 tests, K2's 4,096 with the last triangle
+    tested twice), a mixed block walks on for its free rays; the rays
+    blocked are the plain version's."""
     scene = soup(4095, "cpu", seed=1)
     verts = torch.stack([torch.stack(list(v), 1)
                          for v in (scene.tv0, scene.tv1, scene.tv2)], 1)
@@ -200,12 +209,15 @@ def test_anyhit_exits_settle_whole_blocks():
     dist[512:1024] = 0.0
     dist[1024 + 1:1536:2] = 0.0
     dist[2048 + 1::3] = 0.0
-    table = K.pack_triangles(scene)
-    blocked, tested = anyhit_walk(_first_blocker(table, rays, dist), 4095)
-    np.testing.assert_array_equal(
-        blocked, K.tri_occluded_mt_plain(table, *rays, dist).numpy())
-    assert (tested[0] <= 256).all() and (tested[1] == 4095).all()
-    assert (tested[2] == 4095).all() and (tested[3] <= 256).all()
+    pack, _, _, _, occ = FORMS[form]
+    table = pack(scene)
+    blocked, tested = anyhit_walk(
+        _first_blocker(form, table, rays, dist), 4095, vote_every)
+    np.testing.assert_array_equal(blocked,
+                                  occ(table, *rays, dist).numpy())
+    every = 4095 if vote_every == 1 else 4096
+    assert (tested[0] <= 256).all() and (tested[1] == every).all()
+    assert (tested[2] == every).all() and (tested[3] <= 256).all()
 
 
 def _jvec(a):

@@ -74,3 +74,47 @@ def test_anyhit_tests_count_up_to_the_first_blocker(form):
             want += 40
     assert 300 < want < 300 * 40
     assert TK.anyhit_tests(tile, floats, table, rays, dist, chunk=64) == want
+
+
+def test_visit_checksums_and_plane_tests():
+    """K8's timed scenarios at a small size on the CPU: the checksum (sum
+    of t over hits, count of idx >= 0) of the plain walk, and the plane
+    tests of the valid clusters of the groups each tile walks."""
+    from tuturenderer_tpu_torch.tools import proto_visit as P
+    calls = TK.visit_calls("cpu", nc=8, n_tiles=2)
+    assert sorted(calls) == [("K8", "early 2 x 8"), ("K8", "full 2 x 8")]
+    per_cluster = P.CS * P.TILE
+    for (_, shape), (_, check, tests, args) in calls.items():
+        out = P.run_plain(*args, nc=8)
+        if shape.startswith("full"):
+            # every ray hits z = 5 at t = 6; both tiles walk both groups
+            assert check(out) == [6.0 * 2048, 2048]
+            assert tests == 2 * 8 * per_cluster
+        else:
+            # t = 1 at cluster 0; each tile walks its first group
+            assert check(out) == [1.0 * 2048, 2048]
+            assert tests == 2 * 4 * per_cluster
+    # the special planes skip their sentinel entries: tile 0 walks three
+    # groups with two of them, dead tile 1 one group with one
+    args = P.tensors(P.scenario("special", 16, 2), "cpu")
+    _, _, groups = P.walk_plain(*args, nc=16)
+    assert groups.tolist() == [3, 1]
+    assert TK.visit_tests(args[1], groups, 16) == (10 + 3) * per_cluster
+
+
+def test_sass_counts():
+    """Instructions, FCHK and CALL per kernel of a cuobjdump listing."""
+    listing = """
+        Function : _Z3fooPf
+        .headerflags    @"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MUFU.RCP R3, R2 ;    /* 0x0000000200037308 */
+                                                        /* 0x000e220000001000 */
+        /*0010*/                   FCHK P0, R0, R2 ;    /* 0x0000000200007302 */
+        /*0020*/              @!P0 BRA 0x60 ;           /* 0x0000000000008947 */
+        /*0030*/                   CALL.REL.NOINC 0x80 ; /* 0x0000004000007944 */
+        Function : _Z3barv
+        /*0000*/                   EXIT ;               /* 0x000000000000794d */
+"""
+    assert TK.sass_counts(listing) == {"_Z3fooPf": (4, 1, 1),
+                                       "_Z3barv": (1, 0, 0)}
+

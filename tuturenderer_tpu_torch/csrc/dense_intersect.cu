@@ -18,23 +18,19 @@
 // computed in float32 on the device, 48 bytes a triangle, starting on a
 // 16-byte boundary (the wrappers check). Rays: six float32 [N] columns.
 //
-// K2 (anyhit_kernel<Woop>): one thread per ray, a loop over the T
-// triangles in index order, triangle i read with 13 uniform-index __ldg
-// loads (a broadcast served from L1); the thread returns at its first
-// accepted triangle.
-//
-// K1, K3 and K4 (woop_nearest_kernel, mt_nearest_kernel,
+// K1-K4 (woop_nearest_kernel, woop_anyhit_kernel, mt_nearest_kernel,
 // mt_anyhit_kernel): the block stages the table in shared memory in tiles
 // of 256 triangles, the next tile in flight by cp.async while the current
 // one is tested; each test reads its triangle as broadcast float4s (every
 // lane the same address, no bank conflict); each thread traces two rays
 // (i and i + 256 of its block's 512), so one triangle read and one trip of
 // the loop serve two tests, and the two rays' tests are independent
-// chains the scheduler interleaves. Ray columns and outputs stay
-// coalesced. An MT tile is 3 float4 a triangle, copied 16 bytes at a
-// time. A Woop row is 13 floats (52 bytes), so it cannot be read in place
-// as float4s: its tile is copied 4 bytes at a time into rows padded to 16
-// floats, read as three float4 and one float, and the table needs no
+// chains the scheduler interleaves (for K2, two rays per thread against
+// one was chosen by measurement, PERF.md). Ray columns and outputs stay
+// coalesced. An MT tile is 3 float4 a triangle, copied 16 bytes at a time.
+// A Woop row is 13 floats (52 bytes), so it cannot be read in place as
+// float4s: its tile (K1, K2) is copied 4 bytes at a time into rows padded
+// to 16 floats, read as three float4 and one float, and the table needs no
 // alignment beyond a float.
 //
 // Every nearest hit keeps its best in registers and updates on a strict
@@ -58,11 +54,12 @@
 // lanes' paths, and the branches serialise the chains), so the tests are
 // not cut short.
 //
-// K4 stops at the first blocker only where that saves instructions: a warp
-// leaves the loop once all 64 of its rays are settled (blocked, or past
-// n; __all_sync), and after each tile the block votes (__syncthreads_and)
-// and stops staging tiles once every ray in it is settled. A thread alone
-// that stopped would save nothing: its warp runs its lanes all the same.
+// The any hits (K2, K4) stop at the first blocker only where that saves
+// instructions: a warp leaves the loop once all of its rays are settled
+// (blocked, or past n; __all_sync), and after each tile the block votes
+// (__syncthreads_and) and stops staging tiles once every ray in it is
+// settled. A thread alone that stopped would save nothing: its warp runs
+// its lanes all the same.
 
 #include <cuda_runtime.h>
 
@@ -78,6 +75,7 @@ constexpr int kMtTileF4 = 3 * kTile;    // float4 per MT tile
 constexpr int kWoopFloats = 13;         // a Woop table row
 constexpr int kWoopRowF = 16;           // a staged Woop row, padded
 constexpr int kRays = 2;                // rays per thread of a tiled kernel
+constexpr int kVoteEvery = 4;           // K2's triangles per warp vote
 
 struct Hit {
   float t, u, v;
@@ -103,21 +101,6 @@ __device__ __forceinline__ Hit woop_test(
          (h.v > 0.0f) & (1.0f - h.u - h.v > 0.0f);
   return h;
 }
-
-// The Woop form of anyhit_kernel (K2): triangle `tri` of the flat table
-// read with 13 scalar loads.
-struct Woop {
-  static constexpr int kFloats = kWoopFloats;
-  __device__ __forceinline__ static Hit test(const float* __restrict__ tri,
-                                             float ox, float oy, float oz,
-                                             float dx, float dy, float dz) {
-    return woop_test(__ldg(tri + 0), __ldg(tri + 1), __ldg(tri + 2),
-                     __ldg(tri + 3), __ldg(tri + 4), __ldg(tri + 5),
-                     __ldg(tri + 6), __ldg(tri + 7), __ldg(tri + 8),
-                     __ldg(tri + 9), __ldg(tri + 10), __ldg(tri + 11),
-                     __ldg(tri + 12), ox, oy, oz, dx, dy, dz);
-  }
-};
 
 // Moller-Trumbore test in the order of _kernel: s = o - v0, s1 = d x e2,
 // s2 = s x e1, det = s1 . e1, dn = d . n_hat, inv = 1 / det (unguarded:
@@ -148,32 +131,6 @@ __device__ __forceinline__ Hit mt_test(const float4& a, const float4& b,
   h.ok = fabsf(dn) >= kParallelEps && det != 0.0f && h.t > 0.0f &&
          h.u > 0.0f && h.v > 0.0f && 1.0f - h.u - h.v > 0.0f;
   return h;
-}
-
-template <typename Form>
-__global__ void __launch_bounds__(kBlock)
-anyhit_kernel(const float* __restrict__ tris, int n_tris,
-              const float* __restrict__ ox, const float* __restrict__ oy,
-              const float* __restrict__ oz, const float* __restrict__ dx,
-              const float* __restrict__ dy, const float* __restrict__ dz,
-              const float* __restrict__ dist, int n,
-              int* __restrict__ hit_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float rox = ox[i], roy = oy[i], roz = oz[i];
-  const float rdx = dx[i], rdy = dy[i], rdz = dz[i];
-  const float rdist = dist[i];
-  int blocked = 0;
-  for (int k = 0; k < n_tris; ++k) {
-    const Hit h = Form::test(tris + k * Form::kFloats, rox, roy, roz, rdx,
-                             rdy, rdz);
-    // t < dist with the FLOAT_EQUAL endpoint guard (BVH.hpp:184)
-    if (h.ok && h.t < rdist && fabsf(h.t - rdist) >= kParallelEps) {
-      blocked = 1;
-      break;
-    }
-  }
-  hit_out[i] = blocked;
 }
 
 // One ray of a tiled kernel; a ray past n is traced as zeros and not
@@ -268,12 +225,19 @@ __device__ __forceinline__ Hit woop_row_test(const float* row, const Ray& r) {
                    r.dz);
 }
 
-// K4's test: does triangle (a, b, c) block `r` short of `dist`? mt_test's
-// acceptance, t < dist and the FLOAT_EQUAL endpoint guard (BVH.hpp:184).
+// The any hits' test: does triangle (a, b, c), or a staged Woop row, block
+// `r` short of `dist`? The form's acceptance, t < dist and the FLOAT_EQUAL
+// endpoint guard (BVH.hpp:184).
 __device__ __forceinline__ bool mt_blocks(const float4& a, const float4& b,
                                           const float4& c, const Ray& r,
                                           float dist) {
   const Hit h = mt_test(a, b, c, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
+  return h.ok & (h.t < dist) & (fabsf(h.t - dist) >= kParallelEps);
+}
+
+__device__ __forceinline__ bool woop_blocks(const float* row, const Ray& r,
+                                            float dist) {
+  const Hit h = woop_row_test(row, r);
   return h.ok & (h.t < dist) & (fabsf(h.t - dist) >= kParallelEps);
 }
 
@@ -399,15 +363,67 @@ mt_anyhit_kernel(const float4* __restrict__ tris, int n_tris,
   if (live1) hit_out[i1] = done1;
 }
 
-template <typename Form>
-int launch_anyhit(const float* tris, int n_tris, const float* ox,
-                  const float* oy, const float* oz, const float* dx,
-                  const float* dy, const float* dz, const float* dist, int n,
-                  int* hit_out, void* stream) {
-  const int grid = (n + kBlock - 1) / kBlock;
-  anyhit_kernel<Form><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      tris, n_tris, ox, oy, oz, dx, dy, dz, dist, n, hit_out);
-  return static_cast<int>(cudaGetLastError());
+// K2: the Woop any hit, two rays per thread (i and i + 256 of its block's
+// 512) against K1's padded Woop tiles, with K4's per-warp and per-block
+// exits (see the head of this file), the warp's vote taken once per
+// kVoteEvery triangles.
+__global__ void __launch_bounds__(kBlock)
+woop_anyhit_kernel(const float* __restrict__ tris, int n_tris,
+                   const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ oz, const float* __restrict__ dx,
+                   const float* __restrict__ dy, const float* __restrict__ dz,
+                   const float* __restrict__ dist, int n,
+                   int* __restrict__ hit_out) {
+  __shared__ __align__(16) float tile[2][kTile * kWoopRowF];
+  const int first = blockIdx.x * (kRays * kBlock) + threadIdx.x;
+  Ray r[kRays];
+  float d[kRays];
+  bool done[kRays];    // settled: blocked, or past n
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int i = first + j * kBlock;
+    r[j] = Ray::load(i < n, i, ox, oy, oz, dx, dy, dz);
+    d[j] = i < n ? dist[i] : 0.0f;
+    done[j] = i >= n;
+  }
+  const int n_tiles = (n_tris + kTile - 1) / kTile;
+  stage_woop_tile(tile[0], tris, 0, n_tris);
+  for (int t = 0; t < n_tiles; ++t) {
+    stage_woop_tile(tile[(t + 1) & 1], tris, t + 1, n_tris);
+    wait_tile();
+    const float* s = tile[t & 1];
+    const int count = min(kTile, n_tris - t * kTile);
+    bool settled = false;
+    // the warp votes once per kVoteEvery triangles; a step past the
+    // tile's last triangle tests the last one again, which changes no
+    // any hit
+#pragma unroll 1
+    for (int k = 0; k < count; k += kVoteEvery) {
+      settled = true;
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) settled &= done[j];
+      if (__all_sync(0xffffffffu, settled)) break;
+#pragma unroll
+      for (int u = 0; u < kVoteEvery; ++u) {
+        const float* row = s + min(k + u, count - 1) * kWoopRowF;
+#pragma unroll
+        for (int j = 0; j < kRays; ++j)
+          done[j] |= woop_blocks(row, r[j], d[j]);
+      }
+    }
+    settled = true;
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) settled &= done[j];
+    // the barrier before the next stage overwrites tile t, and the vote
+    if (__syncthreads_and(settled)) break;
+  }
+  // an exit leaves the next tile's group in flight: let it land first
+  asm volatile("cp.async.wait_all;\n" ::);
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int i = first + j * kBlock;
+    if (i < n) hit_out[i] = done[j];
+  }
 }
 
 int tiled_grid(int n) { return (n + kRays * kBlock - 1) / (kRays * kBlock); }
@@ -432,8 +448,10 @@ extern "C" int woop_anyhit(const float* tris, int n_tris, const float* ox,
                            const float* oy, const float* oz, const float* dx,
                            const float* dy, const float* dz, const float* dist,
                            int n, int* hit_out, void* stream) {
-  return launch_anyhit<Woop>(tris, n_tris, ox, oy, oz, dx, dy, dz, dist, n,
-                             hit_out, stream);
+  woop_anyhit_kernel<<<tiled_grid(n), kBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      tris, n_tris, ox, oy, oz, dx, dy, dz, dist, n, hit_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int mt_nearest(const float* tris, int n_tris, const float* ox,

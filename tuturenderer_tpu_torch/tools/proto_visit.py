@@ -45,6 +45,10 @@ def _lib():
     if lib.visit_walk.argtypes is None:
         lib.visit_walk.argtypes = [_P] * 10 + [_I, _I] + [_P] * 3
         lib.visit_walk.restype = _I
+        lib.visit_walk_sm_ids.argtypes = [_P] * 10 + [_I, _I] + [_P] * 4
+        lib.visit_walk_sm_ids.restype = _I
+        lib.visit_walk_ctas.argtypes = []
+        lib.visit_walk_ctas.restype = _I
     return lib
 
 
@@ -93,22 +97,34 @@ def run(vlist, ventry, ox, oy, oz, dx, dy, dz, live, woop, nc: int):
     return _launch(vlist, ventry, rays, woop, nc, n_tiles)
 
 
-def _launch(vlist, ventry, rays, woop, nc: int, n_tiles: int):
+def _launch(vlist, ventry, rays, woop, nc: int, n_tiles: int, sm_out=None):
     """``run``'s launch on CUDA inputs that ``_check`` passed (it reads the
-    visit lists on the host, so ``run`` synchronises; this does not)."""
+    visit lists on the host, so ``run`` synchronises; this does not). With
+    ``sm_out`` (int32 [n_tiles * CTAs per tile]) the kernel also writes the
+    SM each CTA ran on there."""
     ox = rays[0]
     t = torch.empty_like(ox)
     idx = torch.empty(ox.shape[0], dtype=torch.int32, device=ox.device)
     lib = _lib()
     with torch.cuda.device(ox.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.visit_walk(vlist.data_ptr(), ventry.data_ptr(),
-                             *(c.data_ptr() for c in rays), woop.data_ptr(),
-                             nc, n_tiles, t.data_ptr(), idx.data_ptr(),
-                             stream)
+        args = (vlist.data_ptr(), ventry.data_ptr(),
+                *(c.data_ptr() for c in rays), woop.data_ptr(), nc, n_tiles,
+                t.data_ptr(), idx.data_ptr())
+        err = lib.visit_walk(*args, stream) if sm_out is None else \
+            lib.visit_walk_sm_ids(*args, sm_out.data_ptr(), stream)
     _raise_on(err, "visit_walk")
     LAUNCHES["proto_visit"] += 1
     return t, idx
+
+
+def sm_ids(vlist, ventry, rays, woop, nc: int, n_tiles: int):
+    """The SM each CTA of one launch ran on, int32 [n_tiles * CTAs per
+    tile], from the kernel itself (``%smid``)."""
+    sms = torch.empty(n_tiles * _lib().visit_walk_ctas(), dtype=torch.int32,
+                      device=rays[0].device)
+    _launch(vlist, ventry, rays, woop, nc, n_tiles, sms)
+    return sms
 
 
 def walk_plain(vlist, ventry, ox, oy, oz, dx, dy, dz, live, woop, nc: int):
@@ -173,7 +189,11 @@ def scenario(name: str, nc: int, n_tiles: int, seed: int = 0) -> dict:
       3.4e38): every ray hits cluster 0's plane 0 at t = 1 and the walk
       ends after its first group;
     - "full": only the last cluster holds planes (z = 5), entries rise from
-      0.1 to 4.9: every group is walked and t = 6."""
+      0.1 to 4.9: every group is walked and t = 6;
+    - "special": the planes at the arithmetic's edges (``special_planes``).
+    """
+    if name == "special":
+        return special_planes(nc, n_tiles, seed)
     rng = np.random.default_rng(seed)
     n = n_tiles * TILE
     k = np.arange(CS)
@@ -193,7 +213,7 @@ def scenario(name: str, nc: int, n_tiles: int, seed: int = 0) -> dict:
         ventry = np.tile(np.linspace(0.1, 4.9, nc).astype(np.float32),
                          (n_tiles, 1))
     else:
-        raise ValueError(f"scenario {name!r}: 'early' or 'full'")
+        raise ValueError(f"scenario {name!r}: 'early', 'full' or 'special'")
     return dict(
         vlist=vlist.reshape(-1), ventry=ventry.reshape(-1),
         ox=rng.standard_normal(n).astype(np.float32),
@@ -201,6 +221,97 @@ def scenario(name: str, nc: int, n_tiles: int, seed: int = 0) -> dict:
         oz=np.full(n, -1.0, np.float32), dx=np.zeros(n, np.float32),
         dy=np.zeros(n, np.float32), dz=np.ones(n, np.float32),
         live=np.ones(n, np.float32), woop=woop)
+
+
+N_SPECIAL = 16       # clusters of the special-planes scenario
+NEAR = 15            # its cluster of near planes, named only by skipped entries
+F32 = np.float32
+
+
+def _special_rows(rng) -> np.ndarray:
+    """[16, 64, 4] planes (r3x r3y r3z c3) of ``special_planes``: every
+    value but the special rows' on a grid of 1/64, so every product and
+    sum of a test is exact and only the division rounds."""
+    tiny = F32(1e-6)
+    rows = np.zeros((N_SPECIAL, CS, 4), F32)
+    for c in range(N_SPECIAL):
+        z0 = F32(-0.9375) if c == NEAR else F32(-0.5 + c / 8)
+        rows[c, :, 0:2] = rng.integers(-4, 5, (CS, 2)) / 8
+        rows[c, :, 2] = 1.0
+        rows[c, :, 3] = z0 + rng.integers(0, 20, CS) / 64
+        if c == NEAR:
+            rows[c, :, :2] = 0.0
+            rows[c, :, 3] = z0
+            continue
+        special = [
+            (0.0, 0.0, 1.0, z0),                     # horizontal, z = z0
+            (0.0, 0.0, 1.0, z0),                     # its exact tie
+            (0.0, 0.0, 0.0, 0.5),                    # w_d = +0
+            (-1.0, -1.0, -0.0, 0.0),                 # w_d = -0 along +z
+            (0.0, 0.0, 1e-40, 0.0),                  # subnormal w_d
+            (0.0, 0.0, np.nextafter(tiny, F32(0)), 2e-6),   # just below 1e-6
+            (0.0, 0.0, tiny, 2e-6),                  # at 1e-6: t = 2 or 3
+            (0.0, 0.0, np.nextafter(tiny, F32(1)), 2.5e-6),  # just above
+            (0.0, 0.0, np.inf, 0.0),                 # w_d = inf
+            (0.0, 0.0, 1.0, np.inf),                 # t = inf
+            (0.0, 0.0, 1.0, -np.inf),                # t = -inf
+            (np.inf, 0.0, 1.0, 0.0),                 # 0 * inf: w_d NaN
+            (0.0, 0.0, np.nan, 0.0),                 # w_d NaN
+            (0.0, 0.0, 1.0, np.nan),                 # w_o NaN
+        ]
+        if c == 5:
+            special.append((0.0, 0.0, 1.0, 1e-39))   # subnormal t from z = 0
+        rows[c, :len(special)] = np.array(special, F32)
+    return rows
+
+
+def special_planes(nc: int, n_tiles: int, seed: int = 0) -> dict:
+    """Planes and rays at the edges of the plane test's arithmetic, in 16
+    clusters: w_d = +0 and -0, subnormal, just below, at and just above
+    1e-6, inf and NaN rows, an exact tie, a plane at a subnormal c3 (a ray
+    from z = 0 meets it at a subnormal t), beside tilted planes. A tile's
+    visit list names the clusters in a rotated order with sentinel entries
+    between valid ones (at and just below 3e37, and 3.4e38), the skipped
+    ones naming the cluster of nearest planes; its entries rise so that
+    the walk ends on t_lim after its third group; the entries past 16 are
+    3.4e38. Rays: along (0, 0, 1) from z = -1 and from z = 0 (every 8th),
+    along (-0, -0, 1), and tilted (d = (a, b, 1)), every coordinate on a
+    grid of 1/16 or 1/8. Tile 1, if any, is wholly dead."""
+    if nc < N_SPECIAL or nc % G:
+        raise ValueError(f"nc = {nc}: the special planes take >= 16")
+    rng = np.random.default_rng(seed)
+    woop = np.zeros((N_SPECIAL, ROW), F32)
+    k = np.arange(CS)
+    rows = _special_rows(rng)
+    for j in range(4):
+        woop[:, k * WF + 8 + j] = rows[:, :, j]
+    order = np.array([0, NEAR, 1, 2, 3, NEAR, 4, 5, 6, 7, 8, 9, 10, 11, 12,
+                      13])
+    entry = np.array([0.1, 3e37, 0.15, np.nextafter(F32(3e37), F32(0)),
+                      0.2, 3.4e38, 0.25, 0.3, 0.4, 0.42, 0.44, 0.46, 50.0,
+                      51.0, 52.0, 53.0], F32)
+    vlist = np.zeros((n_tiles, nc), np.int32)
+    ventry = np.full((n_tiles, nc), 3.4e38, F32)
+    for t in range(n_tiles):
+        vlist[t, :N_SPECIAL] = np.where(order == NEAR, NEAR,
+                                        (order + t) % NEAR)
+        ventry[t, :N_SPECIAL] = entry
+    n = n_tiles * TILE
+    lane = np.arange(n) % 8
+    ox = (rng.integers(-32, 33, n) / 16).astype(F32)
+    oy = (rng.integers(-32, 33, n) / 16).astype(F32)
+    oz = np.where(lane == 7, F32(0.0), F32(-1.0)).astype(F32)
+    d = np.zeros((n, 3), F32)
+    d[:, 2] = 1.0
+    d[lane == 4, :2] = -0.0
+    tilted = (lane == 5) | (lane == 6)
+    d[tilted, :2] = rng.integers(-4, 5, (int(tilted.sum()), 2)) / 8
+    live = np.ones(n, F32)
+    live[TILE:2 * TILE] = 0.0
+    return dict(vlist=vlist.reshape(-1), ventry=ventry.reshape(-1), ox=ox,
+                oy=oy, oz=oz, dx=np.ascontiguousarray(d[:, 0]),
+                dy=np.ascontiguousarray(d[:, 1]),
+                dz=np.ascontiguousarray(d[:, 2]), live=live, woop=woop)
 
 
 ARGS = ("vlist", "ventry", "ox", "oy", "oz", "dx", "dy", "dz", "live", "woop")

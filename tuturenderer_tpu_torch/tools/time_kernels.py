@@ -1,16 +1,17 @@
-"""Device time of every intersection kernel (K1-K7) at the main path's
+"""Device time of every intersection kernel (K1-K8) at the main path's
 shapes, in whichever checkout of the port is first on the import path.
 
     PYTHONPATH=<checkout> python3 tuturenderer_tpu_torch/tools/time_kernels.py \
-        [--label NAME] [--out FILE] [--dense-only]
+        [--label NAME] [--out FILE] [--only dense|cluster|visit] [--sass DIR]
 
 It needs a CUDA device and nvcc; the kernels build from ``<checkout>``'s
-sources. It calls only the kernels' public wrappers, the scene presets and
-``utils/timing.py``, whose signatures older checkouts share, so it times
-an older checkout (the parent of a change, unpacked by ``git archive``
-into a directory that ``.gitignore`` lists) as well as this one. Comparing
-two versions of a kernel is then one command on the card, the two
-checkouts in turns, each in its own process:
+sources. It calls only the kernels' public wrappers, the scene presets,
+``tools/proto_visit.py``'s ``scenario``, ``tensors``, ``walk_plain`` and
+``_launch`` and ``utils/timing.py``, whose signatures older checkouts
+share, so it times an older checkout (the parent of a change, unpacked by
+``git archive`` into a directory that ``.gitignore`` lists) as well as
+this one. Comparing two versions of a kernel is then one command on the
+card, the two checkouts in turns, each in its own process:
 
     for t in <old> <new> <new> <old>; do
         PYTHONPATH=$t python3 tuturenderer_tpu_torch/tools/time_kernels.py \
@@ -22,18 +23,25 @@ kernels at simple_box's 1,048,576 rays (12 triangles) and the
 Moller-Trumbore K3/K4, the any hits at twice the hit distance); the
 cluster kernels at the 262,144-ray bounce wavefronts of
 sphere_showcase(512, 512) and terrain(512, 512, nx=724, nz=724), K7 on
-the table whose alphas are drawn from {0.3, 0.85, 1.0}. Each time is
-``utils/timing.py``'s ``device_ms``, read twice in turns over the
-kernels; beside it, a checksum of the outputs (the sum of t over hits,
-the count of blocked rays, the sum of the transmittances), equal across
-checkouts when the kernels compute the same. For the dense kernels it
-also gives the ray/triangle tests the data needs (every pair for a
-nearest hit; for an any hit, each ray's tests up to its first blocker)
-and the warp-instruction slots per test that the time takes at
+the table whose alphas are drawn from {0.3, 0.85, 1.0}; the visit-walk
+probe K8 in its "full" and "early" scenarios at 64 tiles x 1024 clusters.
+Each time is ``utils/timing.py``'s ``device_ms``, read twice in turns
+over the kernels; beside it, a checksum of the outputs (the sum of t over
+hits, the count of blocked rays, the sum of the transmittances; for K8
+the sum of t over hits and the count of idx >= 0), equal across
+checkouts when the kernels compute the same. For the dense kernels and
+K8 it also gives the tests the data needs (every ray/triangle pair for a
+nearest hit; for an any hit, each ray's tests up to its first blocker;
+for K8 the plane tests of the valid clusters of the groups each tile
+walks) and the warp-instruction slots per test that the time takes at
 the SM clock nvidia-smi reads under load (4 schedulers per SM, 32 tests
-per slot), and it prints nvcc's register and spill lines for the
-libraries it built. ``--dense-only`` times K1-K4 alone. The last line is
-one JSON object, also written to ``--out``.
+per slot), and for K8 the SMs its launch occupies where the checkout can
+report them (``proto_visit.sm_ids``). It prints nvcc's register and spill
+lines for the libraries it built, and per kernel the instructions,
+``FCHK`` (the IEEE division's range check) and ``CALL`` (to its slow
+path) in ``cuobjdump -sass``; ``--sass DIR`` writes the whole listing
+there. ``--only`` times one family (``--dense-only`` is ``--only
+dense``). The last line is one JSON object, also written to ``--out``.
 """
 from __future__ import annotations
 
@@ -202,6 +210,56 @@ def cluster_calls(dev) -> dict:
     return calls
 
 
+VISIT_SHAPE = (1024, 64)    # K8: clusters in a visit list, tiles
+
+
+def visit_tests(ventry, groups, nc: int) -> int:
+    """K8's plane tests that the data needs: per tile, 64 planes of each
+    valid cluster (entry below the sentinel) of the groups it walks, for
+    each of its 1024 rays."""
+    from tuturenderer_tpu_torch.tools import proto_visit as P
+    ve = ventry.reshape(-1, nc)
+    total = 0
+    for tile, g in enumerate(groups.tolist()):
+        total += int((ve[tile, :g * P.G] < P.SENTINEL).sum())
+    return total * P.CS * P.TILE
+
+
+def visit_checksum(out) -> list:
+    """[sum of t over hits, count of idx >= 0] of a K8 result."""
+    t, idx = out
+    hit = idx >= 0
+    return [float(t[hit].double().sum()), int(hit.sum())]
+
+
+def visit_calls(dev, nc: int = VISIT_SHAPE[0],
+                n_tiles: int = VISIT_SHAPE[1]) -> dict:
+    """{("K8", scenario): (call, checksum, plane tests)} of the visit-walk
+    probe's launch alone (``_launch``: ``run`` reads its visit lists on
+    the host and so synchronises) in its "full" and "early" scenarios,
+    and the inputs of each under "args"."""
+    from tuturenderer_tpu_torch.tools import proto_visit as P
+    calls = {}
+    for name in ("full", "early"):
+        args = P.tensors(P.scenario(name, nc, n_tiles), dev)
+        _, _, groups = P.walk_plain(*args, nc=nc)
+        calls[("K8", f"{name} {n_tiles} x {nc}")] = (
+            lambda a=args: P._launch(a[0], a[1], a[2:9], a[9], nc, n_tiles),
+            visit_checksum, visit_tests(args[1], groups, nc), args)
+    return calls
+
+
+def visit_sms(args, nc: int = VISIT_SHAPE[0],
+              n_tiles: int = VISIT_SHAPE[1]):
+    """The SMs one K8 launch occupies, or None where the checkout's probe
+    cannot report them."""
+    from tuturenderer_tpu_torch.tools import proto_visit as P
+    if not hasattr(P, "sm_ids"):
+        return None
+    ids = P.sm_ids(args[0], args[1], args[2:9], args[9], nc, n_tiles)
+    return int(torch.unique(ids).numel())
+
+
 def _smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -232,12 +290,48 @@ def ptxas_lines(name: str) -> list:
             "Compiling" in line]
 
 
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the library built from ``csrc/<name>.cu``."""
+    from tuturenderer_tpu_torch.ops.cuda import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+def sass_counts(listing: str) -> dict:
+    """{kernel: (instructions, FCHK, CALL)} of a ``cuobjdump -sass``
+    listing: each kernel's instruction lines (``/*0a70*/`` addresses), its
+    division range checks and its calls (the division's slow path)."""
+    counts, name = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0, 0]
+        elif name and line.strip().startswith("/*") and "*/" in line:
+            op = line.split("*/", 1)[1].strip()
+            if not op or op.startswith("/*"):
+                continue
+            counts[name][0] += 1
+            counts[name][1] += "FCHK" in op
+            counts[name][2] += "CALL" in op
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+FAMILIES = {"dense": "dense_intersect", "cluster": "bvh_walk",
+            "visit": "proto_visit"}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--label", default="", help="names the checkout")
     p.add_argument("--out", default="", help="also write the JSON here")
-    p.add_argument("--dense-only", action="store_true",
-                   help="time K1-K4 alone")
+    p.add_argument("--only", choices=sorted(FAMILIES),
+                   help="time one family of kernels")
+    p.add_argument("--dense-only", dest="only", action="store_const",
+                   const="dense", help="the same as --only dense")
+    p.add_argument("--sass", default="",
+                   help="write each library's cuobjdump -sass here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: needs a CUDA device")
@@ -249,20 +343,41 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.dirname(tuturenderer_tpu_torch.__file__))
     print(f"time_kernels {args.label}: the port at {root}; {smi}",
           flush=True)
-    build.load_all(("dense_intersect",) if args.dense_only else
-                   ("dense_intersect", "bvh_walk"))
-    for name in ("dense_intersect", "bvh_walk"):
+    families = [args.only] if args.only else list(FAMILIES)
+    libs = [FAMILIES[f] for f in families]
+    build.load_all(libs)
+    for name in libs:
         for line in ptxas_lines(name):
             print(f"  {name}.cu: {line}", flush=True)
-    calls = dense_calls(dev)
-    if not args.dense_only:
+        listing = sass(name)
+        if args.sass:
+            os.makedirs(args.sass, exist_ok=True)
+            with open(os.path.join(args.sass, f"{name}.sass"), "w") as f:
+                f.write(listing)
+        for kernel, (n, fchk, call) in sass_counts(listing).items():
+            print(f"  {name}.cu SASS {kernel}: {n} instructions, {fchk} "
+                  f"FCHK, {call} CALL", flush=True)
+    calls = {}
+    if "dense" in families:
+        calls.update(dense_calls(dev))
+    if "cluster" in families:
         calls.update(cluster_calls(dev))
+    visit_args = {}
+    if "visit" in families:
+        for key, (call, check, tests, a) in visit_calls(dev).items():
+            calls[key] = (call, check, tests)
+            visit_args[key] = a
     sums = {key: check(call()) for key, (call, check, _) in calls.items()}
     turns = {key: [] for key in calls}
     for key in [*calls, *reversed(calls)]:
         turns[key].append(device_ms(calls[key][0]))
-    # the SM clock under load (the soup's MT nearest hit, ~1 ms a launch)
-    mhz = sm_clock_mhz(calls[("K3", "soup 4095 x 65536")][0])
+    # the SM clock under load: the soup's MT nearest hit (~1 ms a launch),
+    # else K8's full walk, some 300 ms of launches queued per read
+    load = ("K3", "soup 4095 x 65536")
+    if load not in calls:
+        load = next(iter(visit_args), next(iter(calls)))
+    mhz = sm_clock_mhz(calls[load][0],
+                       burst=max(5, int(300 / np.mean(turns[load]))))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"  SM clock under load: {mhz:.0f} MHz (max "
           f"{_smi('clocks.max.sm')}); {sms} SMs", flush=True)
@@ -273,11 +388,15 @@ def main(argv=None) -> int:
         # warp-instruction slots (4 schedulers per SM) per 32 tests
         slots = (mean * 1e-3 * sms * 4 * mhz * 1e6 / (tests / 32)
                  if tests else None)
-        rows.append({"kernel": kernel, "shape": shape, "ms": mean,
-                     "turns": ms, "checksum": sums[(kernel, shape)],
-                     "tests": tests, "slots_per_test": slots})
+        row = {"kernel": kernel, "shape": shape, "ms": mean, "turns": ms,
+               "checksum": sums[(kernel, shape)], "tests": tests,
+               "slots_per_test": slots}
         per_test = f"; {tests} tests, {slots:.1f} warp-instruction slots per test" \
             if tests else ""
+        if (kernel, shape) in visit_args:
+            row["sms"] = visit_sms(visit_args[(kernel, shape)])
+            per_test += f"; SMs occupied {row['sms']}"
+        rows.append(row)
         print(f"  {kernel} {shape}: device ms {ms[0]:.4f} {ms[1]:.4f} "
               f"(mean {mean:.4f}); checksum {sums[(kernel, shape)]!r}"
               f"{per_test}", flush=True)
