@@ -66,7 +66,46 @@ Phases, in order; any failure raises and the script exits non-zero:
     lanes and at 3 tiles, against the plain version, with the device time
     of its launch alone (the full walk and the early exit) and of ``run``
     with its synchronising input check, the SMs the launch occupies and
-    its warp-instruction slots per plane test at the SM clock under load.
+    its warp-instruction slots per plane test at the SM clock under load;
+14. the config entry point: ``render.render_config`` of
+    ``golden/mft_128.txt`` and ``golden/tex_128.txt`` (a copy whose
+    texture paths point at this checkout's ``golden/tex/``) at 128x128 x
+    64 spp in one wavefront, under the oracle quirk profile, at seeds 9
+    and 23, quantized with the reference's truncating write and held to
+    the reference renderer's images (``golden/*_ref.ppm``) with
+    tests/test_golden.py's ``compare`` and bars; K1 and K2 against their
+    plain versions on the first bounce's nearest hits and NEE shadow rays
+    of each config's render; a ``write_ppm`` ->
+    ``read_ppm`` round trip under ``build/chip_smoke/``; and
+    ``golden/mesh_bdpt_128.txt`` (18,244 faces) parsed and built with
+    cluster tables, with its seconds;
+15. wavefront compaction: ``sphere_showcase(512, 512)`` x 16 spp in one
+    wavefront under the schedule bench.py derives from the live-lane
+    fractions (1.5x, floor 0.01), compacted and uncompacted in turns,
+    equal to float order, with K5 and K6 against their plain versions on
+    that render's 4,194,304-lane wavefront and its first compacted width;
+    ``simple_box(256, 256)`` x 16 spp whose compaction (1.0, 0.25)
+    overflows (the mean within 5 %) and (1.0, 1.0) does not, with K1 and
+    K2 on the shrunk wavefront; the translucent showcase under
+    ``alpha_shadows`` and a schedule that must not overflow, equal to the
+    uncompacted render, with K5 and K7 on its shrunk wavefront; and two
+    compacted renders against the stored JAX renders
+    (``tests/data/torch_compact_*_jax_ref.npz``), the overflow count
+    equal;
+16. the light tracer and the naive path tracer on ``simple_box(1024,
+    1024)`` and ``sphere_showcase(512, 512)`` at 16 spp, walls and
+    Mpaths/s, the kernels (K1/K2, K5/K6) against their plain versions on
+    each walk's nearest hits and the light tracer's direct and connection
+    shadow rays, the CHECK_LT pass (``raster_check``,
+    ``raster_roundtrip_error``), and four renders against the stored JAX
+    renders (``tests/data/torch_{lt,naive}_*_jax_ref.npz``, made by
+    ``tests/data/make_torch_integrator_refs.py``).
+
+Every render of phases 14-16 is timed and its kernel launches are held to
+the count its log line's formula gives. Their kernel comparisons run on the
+inputs the render gave the kernel (``tools/time_kernels.py``'s
+``capture``, in one more render that is not timed), the plain versions on at most 65,536 of each call's rays, and
+their errors join the kernels line's ``max_abs_err``.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -216,17 +255,21 @@ def dense_form(form: str) -> dict:
 
 
 def compare_kernels(name: str, form: str, scene, rays, report: dict,
-                    timed: bool = True, quiet: bool = False):
+                    timed: bool = True, quiet: bool = False, shadows=None,
+                    table=None):
     """Kernel vs plain on one ray set, nearest hit and any hit, in one
     dense form: hits equal, t and the barycentrics bit-equal, idx equal
-    wherever t is unique, every any-hit mask equal. Returns the kernel and
-    plain device times (ms), or {} when not ``timed``. ``quiet`` logs
-    nothing unless a comparison fails."""
+    wherever t is unique, every any-hit mask equal. The any hits run at
+    distances from the hit (SHADOW_DISTS), or on ``shadows`` ({label: 6
+    ray columns + dist}) when given. ``table`` replaces the scene's packed
+    triangles. Returns the kernel and plain device times (ms), or {} when
+    not ``timed``. ``quiet`` logs nothing unless a comparison fails."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
     say = (lambda msg: None) if quiet else log
     f = dense_form(form)
     k_near, k_occ = f["keys"]
-    table = f["pack"](scene)
+    if table is None:
+        table = f["pack"](scene)
     name = f"{name} [{'/'.join(f['labels'])}]"
     tk, ik, uk, vk = f["near"](table, *rays)
     tp, ip, up, vp = f["near_plain"](table, *rays)
@@ -259,15 +302,18 @@ def compare_kernels(name: str, form: str, scene, rays, report: dict,
 
     # shadow rays: dist at 0.5x, 1x, 2x and within 1e-4 of the hit
     t_ref = torch.where(hp, tp, torch.full_like(tp, 10.0))
+    if shadows is None:
+        shadows = {f"t*{fac}{off:+g}": [*rays, (t_ref * fac + off)
+                                       .contiguous()]
+                   for fac, off in SHADOW_DISTS}
     any_err = 0.0
-    for fac, off in SHADOW_DISTS:
-        dist = (t_ref * fac + off).contiguous()
-        bk = f["occ"](table, *rays, dist)
-        bp = f["occ_plain"](table, *rays, dist)
+    for label, cols in shadows.items():
+        bk = f["occ"](table, *cols)
+        bp = f["occ_plain"](table, *cols)
         n_diff = int((bk != bp).sum())
         any_err = max(any_err, float(n_diff > 0))
-        say(f"  {name}: any-hit dist=t*{fac}{off:+g} blocked="
-            f"{bp.float().mean().item():.4f} disagree={n_diff}")
+        say(f"  {name}: any-hit dist={label} rays={cols[0].shape[0]} "
+            f"blocked={bp.float().mean().item():.4f} disagree={n_diff}")
         if n_diff:
             raise AssertionError(f"{name}: any-hit disagrees on {n_diff} rays")
     report[k_occ] = max(report.get(k_occ, 0.0), any_err)
@@ -608,15 +654,15 @@ def check_nearest(name: str, got, want):
 
 
 def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
-                            shadow=None, dists=SHADOW_DISTS,
+                            shadows=None, dists=SHADOW_DISTS,
                             step: int = 1) -> dict:
     """K5, K6 and K7 (the BVH walk's three modes) against the plain
     versions on one ray set: t bit-equal, bu/bv equal wherever idx is,
-    every any-hit mask equal, K7 within rtol 1e-5 / atol 1e-6. ``shadow``
-    (6 columns + dist) replaces the any-hit and K7 rays and distances when
-    given; K7 runs on ``alpha_cl``. The kernels trace every ray, the plain
-    versions every ``step``-th, and the two are compared there. Returns the
-    max abs error per kernel."""
+    every any-hit mask equal, K7 within rtol 1e-5 / atol 1e-6. ``shadows``
+    ({label: 6 columns + dist}) replaces the any-hit and K7 rays and
+    distances when given ({} compares K5 alone); K7 runs on ``alpha_cl``.
+    The kernels trace every ray, the plain versions every ``step``-th, and
+    the two are compared there. Returns the max abs error per kernel."""
     from tuturenderer_tpu_torch.ops.cuda import cluster as C
     sub = lambda cs: [c[::step].contiguous() for c in cs]
     want = C.cluster_intersect_plain(clusters, *sub(rays))
@@ -624,7 +670,7 @@ def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
     check_nearest(f"{name} K5", got, want)
     errs = {"cluster_nearest": 0.0, "cluster_anyhit": 0.0,
             "cluster_transmit": 0.0}
-    if shadow is None:
+    if shadows is None:
         if step != 1:
             raise ValueError("distances from the hit need every ray")
         t_ref = torch.where(want[1] >= 0, want[0],
@@ -632,7 +678,7 @@ def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
         sets = [(f"t*{f}{off:+g}", rays, (t_ref * f + off).contiguous())
                 for f, off in dists]
     else:
-        sets = [("wavefront dist", shadow[:6], shadow[6])]
+        sets = [(label, cols[:6], cols[6]) for label, cols in shadows.items()]
     for label, r6, dist in sets:
         sub_dist = dist[::step].contiguous()
         bp = C.cluster_occluded_plain(clusters, *sub(r6), sub_dist)
@@ -641,7 +687,8 @@ def compare_cluster_kernels(name: str, clusters, alpha_cl, rays,
         xk = C.cluster_transmittance(alpha_cl, *r6, dist)[::step]
         xp = C.cluster_transmittance_plain(alpha_cl, *sub(r6), sub_dist)
         x_err = (xk - xp).abs().max().item()
-        log(f"  {name}: dist={label} K6 blocked={bp.float().mean():.4f} "
+        log(f"  {name}: dist={label} rays={dist.shape[0]} (plain on every "
+            f"{step}) K6 blocked={bp.float().mean():.4f} "
             f"disagree={n_diff}; K7 mean={xp.mean():.4f} at 0 "
             f"{(xp == 0).float().mean():.4f} max|err|={x_err:.3g}")
         if n_diff:
@@ -796,7 +843,7 @@ def phase_cluster_kernels(dev):
 
     near, occ = wavefront(scene, cam)
     merge(compare_cluster_kernels("sphere_showcase wavefront", cl, alpha_cl,
-                                  near, shadow=occ))
+                                  near, shadows={"wavefront dist": occ}))
 
     # device time, tests and node visits per ray and bound at the main
     # path's shapes, then the plain versions
@@ -824,23 +871,70 @@ def phase_cluster_kernels(dev):
                                   ray_set(scene, cam, 16384)))
     near, occ = wavefront(scene, cam)
     merge(compare_cluster_kernels("terrain wavefront", cl, alpha_cl, near,
-                                  shadow=occ, step=4))
+                                  shadows={"wavefront dist": occ},
+                                  step=4))
     walk_stats("terrain wavefront", cl, alpha_cl, near, occ)
     return errs, stats
 
 
-def timed_render(scene, cam, opts, dev):
-    """(image, wall s, launches) of one render, counts zeroed just before."""
-    from tuturenderer_tpu_torch.integrators.path import render
+def timed(fn):
+    """(fn's result, wall s, kernel launches) of one call, the launch counts
+    zeroed just before it."""
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
     torch.cuda.synchronize()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    img = render(scene, cam, opts, seed=0)
+    out = fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+# the plain versions of phases 14-16 trace at most this many of a captured
+# call's rays (every n // PLAIN_RAYS-th); the kernels trace all of them
+PLAIN_RAYS = 1 << 16
+
+
+def compare_captured(name: str, got: dict, alpha_cl=None) -> dict:
+    """The kernels against their plain versions on a render's captured
+    inputs (``tools/time_kernels.py`` ``capture``): the nearest-hit call
+    and every shadow call of
+    ``got``, dense (K1/K2) or cluster (K5-K7; K7 on ``alpha_cl``, by
+    default the scene's table with alphas drawn by ``alpha_table``), the
+    plain versions on at most PLAIN_RAYS rays of each. Returns the max abs
+    error per kernel."""
+    from tuturenderer_tpu_torch.tools.time_kernels import alpha_table
+    near = {k: v for k, v in got.items() if k.endswith("intersect")}
+    (near_name, calls), = near.items()
+    (label, (table, rays)), = calls.items()
+    shadows = {lab: cols for k, v in got.items() if k not in near
+               for lab, (_, cols) in v.items()}
+    log(f"  {name}: the kernels against their plain versions on the "
+        f"render's own inputs: nearest hit at {label} "
+        f"({rays[0].shape[0]} rays), shadow calls "
+        f"{[f'{lab} ({c[0].shape[0]} rays)' for lab, c in shadows.items()]}")
+    if near_name == "tri_intersect":
+        errs = {}
+        compare_kernels(f"{name}, {label}", "woop", None, rays, errs,
+                        timed=False, shadows=shadows, table=table)
+        return errs
+    step = max(1, max(c[0].shape[0] for c in [rays, *shadows.values()])
+               // PLAIN_RAYS)
+    if alpha_cl is None:
+        alpha_cl = alpha_table(table, table.woop.device)
+    return compare_cluster_kernels(f"{name}, {label}", table, alpha_cl,
+                                   rays, shadows=shadows, step=step)
+
+
+def merge_errs(into: dict, errs: dict):
+    for k, v in errs.items():
+        into[k] = max(into.get(k, 0.0), v)
+
+
+def timed_render(scene, cam, opts, dev):
+    """(image, wall s, launches) of one render, counts zeroed just before."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    img, wall, launches = timed(lambda: render(scene, cam, opts, seed=0))
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("render produced non-finite pixels")
     if tuple(img.shape) != (cam.height, cam.width, 3):
@@ -1249,10 +1343,439 @@ def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
                            "bound_by": b_by}
 
 
+# ------------------------------------------------------------------ phase 14
+
+# tests/test_golden.py's oracle quirk profile and truncating quantization;
+# the two configs the path tracer serves, each at two seeds
+GOLDEN_CASES = (("mft_128.txt", "mft_128_ref.ppm"),
+                ("tex_128.txt", "tex_128_ref.ppm"))
+GOLDEN_SEEDS = (9, 23)
+GOLDEN_SPP = 64
+ORACLE = dict(tutu_light_pick=True, tutu_tri_sample=True,
+              ggx_sample_bug=True)
+
+
+def quantize(img):
+    """The reference's pixel write: gamma 0.78 then TRUNCATING 8-bit
+    quantization ((int)(255*v), PPMGenerator.hpp:825-843)."""
+    return np.floor(np.clip(np.asarray(img), 0.0, 1.0) ** 0.78 * 255.0) / 255.0
+
+
+def block_mean(img, b):
+    h, w, c = img.shape
+    return img.reshape(h // b, b, w // b, b, c).mean(axis=(1, 3))
+
+
+def compare(golden, ours, blk, t_block, t_meanabs, t_mean):
+    g8 = block_mean(golden, blk)
+    o8 = block_mean(ours, blk)
+    assert np.abs(g8 - o8).max() < t_block, \
+        f"max block diff {np.abs(g8 - o8).max():.4f}"
+    assert np.abs(golden - ours).mean() < t_meanabs, \
+        f"mean abs diff {np.abs(golden - ours).mean():.4f}"
+    assert abs(golden.mean() - ours.mean()) < t_mean, \
+        f"mean diff {abs(golden.mean() - ours.mean()):.4f}"
+
+
+def root_path(*parts) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), *parts)
+
+
+def golden_config(name: str, directory: str) -> str:
+    """A copy of ``golden/<name>`` in ``directory`` whose texture paths
+    (absolute, valid only where the repository was when the file was
+    written) point at the files of those names in this checkout's
+    golden/tex/."""
+    from tuturenderer_tpu_torch.scene.config import relocate_config
+    return relocate_config(root_path("golden", name),
+                           os.path.join(directory, name),
+                           root_path("golden", "tex"))
+
+
+def path_launches(opts, nearest: str, shadow: str) -> dict:
+    """A path-tracer render's launches: per wavefront (max_depth + 2)
+    nearest hits and (max_depth + 1) shadow calls, spp /
+    samples_per_launch wavefronts; a shrink launches nothing."""
+    batches = opts.spp // max(1, opts.samples_per_launch)
+    return {nearest: (opts.max_depth + 2) * batches,
+            shadow: (opts.max_depth + 1) * batches}
+
+
+def phase_golden(dev) -> dict:
+    """render_config of the two oracle configs at both seeds, held to the
+    reference renderer's images, and K1/K2 against their plain versions on
+    each config's render; the mesh-scale oracle config parsed and built; a
+    P3 round trip. Returns the kernels' max abs errors."""
+    log("== phase 14: the config entry point: render_config of golden/"
+        "mft_128.txt and tex_128.txt at 128x128 x 64 spp (one wavefront, "
+        "samples_per_launch=64, oracle quirk profile) against the reference "
+        "renderer's images")
+    import tempfile
+
+    from tuturenderer_tpu_torch.io.ppm import read_ppm, write_ppm
+    from tuturenderer_tpu_torch.io.ppm import quantize as write_quantize
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.render import render_config
+    from tuturenderer_tpu_torch.scene.config import parse_config
+    from tuturenderer_tpu_torch.tools.time_kernels import at, capture
+    opts = RenderOptions(spp=GOLDEN_SPP, samples_per_launch=GOLDEN_SPP,
+                         **ORACLE)
+    want = path_launches(opts, "nearest", "anyhit")
+    tmp = tempfile.mkdtemp()
+    out_dir = root_path("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    errs = {}
+    for config, ppm in GOLDEN_CASES:
+        path = golden_config(config, tmp)
+        golden = read_ppm(root_path("golden", ppm))
+        for seed in GOLDEN_SEEDS:
+            img, wall, launches = timed(lambda: render_config(
+                path, opts, seed=seed, verbose=False, device=dev))
+            log(f"{config} seed {seed}: wall={wall:.3f} s; launches "
+                f"(max_depth + 2) x spp/samples_per_launch nearest, "
+                f"(max_depth + 1) x spp/samples_per_launch any hit:")
+            check_launches(launches, want)
+            if img.shape != golden.shape or not np.isfinite(img).all():
+                raise AssertionError(f"{config}: image {img.shape}")
+            ours = quantize(img)
+            blk = np.abs(block_mean(golden, 16) - block_mean(ours, 16)).max()
+            log(f"  against golden/{ppm}: max 16x16 block diff {blk:.5f} "
+                f"(bar 0.025), mean abs diff "
+                f"{np.abs(golden - ours).mean():.5f} (bar 0.03), mean diff "
+                f"{abs(golden.mean() - ours.mean()):.5f} (bar 0.006); "
+                f"image mean {img.mean():.6f}")
+            compare(golden, ours, 16, 0.025, 0.03, 0.006)
+        # the inputs this render gives K1 and K2 (one more render, not
+        # timed): the first bounce's nearest hits and its NEE shadow rays
+        with capture(tri_intersect={"bounce 1": at(1)},
+                     tri_occluded={"NEE at bounce 1": at(1)}) as got:
+            render_config(path, opts, seed=GOLDEN_SEEDS[0], verbose=False,
+                          device=dev)
+        merge_errs(errs, compare_captured(
+            f"{config} seed {GOLDEN_SEEDS[0]}", got))
+        # the reference's P3 write and read, round trip
+        ppm_path = os.path.join(out_dir, config.replace(".txt", ".ppm"))
+        write_ppm(ppm_path, img)
+        back = read_ppm(ppm_path)
+        if not np.array_equal(back, write_quantize(img) / np.float32(255.0)):
+            raise AssertionError(f"{ppm_path}: write_ppm/read_ppm round trip")
+        log(f"  write_ppm -> read_ppm {ppm_path}: equal")
+    # the mesh-scale oracle config: parsed and built on the card (its
+    # bdpt integrator comes with ROADMAP item 12b)
+    t0 = time.perf_counter()
+    pc = parse_config(root_path("golden", "mesh_bdpt_128.txt"))
+    parse_s = time.perf_counter() - t0
+    scene = pc.builder.build(device=dev)
+    cam = pc.camera(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0 - parse_s
+    if scene.n_tris != 18244 or scene.clusters is None:
+        raise AssertionError("mesh_bdpt_128: unexpected scene")
+    log(f"golden/mesh_bdpt_128.txt: parsed in {parse_s:.2f} s, scene with "
+        f"cluster tables built on the card in {build_s:.2f} s "
+        f"({scene.n_tris} triangles, {scene.n_lights} lights, "
+        f"{cam.width}x{cam.height}, integrator {pc.integrator})")
+    return errs
+
+
+# ------------------------------------------------------------------ phase 15
+
+def against_integrator_reference(name: str, dev):
+    """One stored JAX render of the light tracer, the naive path tracer or
+    compaction (``tests/data/torch_<name>_jax_ref.npz``, made by
+    ``tests/data/make_torch_integrator_refs.py``) rendered on the card as
+    the file's ``case`` says, at the CPU tests' bar; a compacted render's
+    overflow count equal to JAX's."""
+    from tuturenderer_tpu_torch.integrators import light, naive, path
+    from tuturenderer_tpu_torch.models import scenes
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene import presets
+    ref = np.load(root_path("tests", "data",
+                            f"torch_{name.replace('-', '_')}_jax_ref.npz"))
+    case = json.loads(str(ref["case"]))
+    make = getattr(presets if case["scene"] == "simple_box" else scenes,
+                   case["scene"])
+    scene, cam = make(*case["size"], **case["scene_kw"], device=dev)
+    opts = RenderOptions(**{k: tuple(v) if isinstance(v, list) else v
+                            for k, v in case["options"].items()})
+    run = {"path": path.render, "light": light.render,
+           "naivept": naive.render}[case["integrator"]]
+    extra = ""
+    if case["integrator"] == "path":
+        img, st = run(scene, cam, opts, case["seed"], stats=True)
+        over, want = int(st["compaction_overflow"]), \
+            int(ref["compaction_overflow"])
+        extra = f", overflow {over} (JAX {want})"
+        if over != want:
+            raise AssertionError(f"{name}: overflow {over}, JAX {want}")
+    else:
+        img = run(scene, cam, opts, case["seed"])
+    img, want_img = img.cpu().numpy(), ref["image"]
+    close = np.isclose(img, want_img, rtol=1e-4, atol=1e-5).all(axis=-1)
+    rel = abs(img.mean() - want_img.mean()) / want_img.mean()
+    log(f"{name} ({case['integrator']}, {case['scene']} "
+        f"{case['size'][0]}x{case['size'][1]}, {case['options']}): pixels "
+        f"within rtol 1e-4 / atol 1e-5: {close.mean() * 100:.2f}% (bar "
+        f"99%), image mean {img.mean():.6f} vs {want_img.mean():.6f} (rel "
+        f"{rel:.2e}, bar 0.5%){extra}")
+    if close.mean() < 0.99 or rel > 0.005:
+        raise AssertionError(f"{name}: render disagrees with the JAX "
+                             "reference")
+
+
+def alive_schedule(scene, cam, opts, dev, max_lanes: int = 1 << 18):
+    """(live fractions, compaction schedule) as bench.py:127-140 derives
+    them: the live-lane fraction entering each bounce of one sample at up
+    to max_lanes lanes (the port's trace_rays(collect_alive=True)), times a
+    1.5 margin, floored at 0.01."""
+    from tuturenderer_tpu_torch.camera import primary_ray
+    from tuturenderer_tpu_torch.integrators.path import trace_rays
+    n = cam.n_pixels
+    lane = torch.arange(0, n, max(1, n // max_lanes), dtype=torch.int32,
+                        device=dev)
+    o, d, _ = primary_ray(cam, lane % cam.width, lane // cam.width)
+    with torch.no_grad():
+        _, counts = trace_rays(scene, cam, o, d, lane, 0, 0, opts,
+                               collect_alive=True)
+    fracs = counts.double().cpu().numpy() / lane.shape[0]
+    sched = tuple(float(min(1.0, max(1.5 * f, 0.01))) for f in fracs[:-1])
+    return fracs, sched
+
+
+def timed_path(scene, cam, opts, want: dict, label: str):
+    """(image, overflow count, wall) of one path-tracer render with stats,
+    its launches held to ``want``."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    (img, st), wall, launches = timed(
+        lambda: render(scene, cam, opts, 0, stats=True))
+    over = int(st["compaction_overflow"])
+    log(f"  {label}: wall={wall:.3f} s image mean={img.mean().item():.6f} "
+        f"overflow={over}")
+    check_launches(launches, want)
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: non-finite pixels")
+    return img, over, wall
+
+
+def phase_compaction(dev) -> dict:
+    """Compaction at full width, the kernels against their plain versions
+    on the compacted renders' inputs, and against the stored JAX renders.
+    Returns the kernels' max abs errors."""
+    import dataclasses
+
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.tools.time_kernels import (at, capture,
+                                                           first_shrunk)
+    log("== phase 15.1: compaction at full width: sphere_showcase(512, 512)"
+        " x 16 spp in one wavefront (samples_per_launch=16), the schedule "
+        "from the live fractions, in turns uncompacted, compacted, "
+        "compacted, uncompacted; launches (max_depth + 2) x "
+        "spp/samples_per_launch nearest, (max_depth + 1) x that any hit")
+    scene, cam = sphere_showcase(512, 512, device=dev)
+    base = RenderOptions(spp=16, samples_per_launch=16)
+    fracs, sched = alive_schedule(scene, cam, RenderOptions(spp=16), dev)
+    comp = dataclasses.replace(base, compaction=sched)
+    log(f"live fractions {np.round(fracs, 4).tolist()} -> compaction "
+        f"{np.round(sched, 4).tolist()}")
+    want = path_launches(base, "cluster_nearest", "cluster_anyhit")
+    # warm-up at this wavefront's size (the allocator), not counted; the
+    # inputs it gives K5/K6 at the full width (the camera rays, the NEE at
+    # their hits; the schedule shrinks before the first bounce) and at the
+    # first compacted width
+    errs = {}
+    with capture(cluster_intersect={"full-width camera rays": at(0),
+                                    "first compacted width": first_shrunk},
+                 cluster_occluded={"full-width NEE": at(0),
+                                   "NEE at the first compacted width":
+                                       first_shrunk}) as got:
+        timed_path(scene, cam, comp, want, "warm-up, compacted")
+    for label in ("full-width", "first compacted width"):
+        part = {k: {lab: c for lab, c in v.items()
+                    if ("compacted" in lab) == (label != "full-width")}
+                for k, v in got.items()}
+        merge_errs(errs, compare_captured(f"showcase compacted, {label}",
+                                          part))
+    del got, part
+    got = {}
+    for label, opts in (("uncompacted", base), ("compacted", comp),
+                        ("compacted", comp), ("uncompacted", base)):
+        img, over, wall = timed_path(scene, cam, opts, want, label)
+        got.setdefault(label, []).append((img, over, wall))
+    a, b = got["uncompacted"][0][0], got["compacted"][0][0]
+    over = got["compacted"][0][1]
+    diff = (a - b).abs()
+    rel = (diff / a.abs().clamp(min=1e-6)).max().item()
+    walls = {k: [w for _, _, w in v] for k, v in got.items()}
+    log(f"walls: uncompacted {walls['uncompacted']}, compacted "
+        f"{walls['compacted']}; compacted vs uncompacted: max |diff| "
+        f"{diff.max().item():.3g}, max rel {rel:.3g}, repeat runs "
+        f"bit-equal: {bool(torch.equal(a, got['uncompacted'][1][0]))}, "
+        f"{bool(torch.equal(b, got['compacted'][1][0]))}")
+    if over:
+        raise AssertionError(f"the 1.5x schedule overflowed ({over} lanes)")
+    # float order only: a lane's radiance is summed in parts, flushed at
+    # each shrink
+    if not torch.allclose(b, a, rtol=1e-5, atol=1e-6):
+        raise AssertionError("compacted showcase differs from uncompacted")
+    del scene, cam, a, b, got
+
+    log("== phase 15.2: simple_box(256, 256) x 16 spp under compaction="
+        "(1.0, 0.25) (overflow) and (1.0, 1.0); launches (max_depth + 2) x "
+        "spp nearest, (max_depth + 1) x spp any hit")
+    scene, cam = simple_box(256, 256, device=dev)
+    base = RenderOptions(spp=16)
+    want = path_launches(base, "nearest", "anyhit")
+    plain, _, _ = timed_path(scene, cam, base, want, "uncompacted")
+    tight, over, _ = timed_path(
+        scene, cam, dataclasses.replace(base, compaction=(1.0, 0.25)), want,
+        "compaction=(1.0, 0.25)")
+    _, over0, _ = timed_path(
+        scene, cam, dataclasses.replace(base, compaction=(1.0, 1.0)), want,
+        "compaction=(1.0, 1.0)")
+    rel = abs(tight.mean().item() - plain.mean().item()) / \
+        plain.mean().item()
+    log(f"overflow {over} (> 0), mean off by {rel:.4f} (bar 0.05), roomy "
+        f"overflow {over0} (0)")
+    if not (over > 0 and rel < 0.05 and over0 == 0):
+        raise AssertionError("compaction overflow contract broken")
+    # K1/K2 on the shrunk dense wavefront: one sample, not timed
+    with capture(tri_intersect={"first compacted width": first_shrunk},
+                 tri_occluded={"NEE at the first compacted width":
+                               first_shrunk}) as got:
+        timed_path(scene, cam, dataclasses.replace(
+            base, spp=1, compaction=(1.0, 0.25)),
+            path_launches(dataclasses.replace(base, spp=1), "nearest",
+                          "anyhit"), "compaction=(1.0, 0.25), 1 spp")
+    merge_errs(errs, compare_captured("simple_box compacted", got))
+    del got
+
+    log("== phase 15.3: the translucent showcase 256^2 x 4 spp with "
+        "alpha_shadows under a compaction schedule (K7 on a shrunk "
+        "wavefront); launches (max_depth + 2) x spp nearest, "
+        "(max_depth + 1) x spp transmittance")
+    scene, cam = translucent_showcase(256, 256, device=dev)
+    base = RenderOptions(spp=4, alpha_shadows=True)
+    _, sched = alive_schedule(scene, cam, base, dev)
+    want = path_launches(base, "cluster_nearest", "cluster_transmit")
+    plain, _, _ = timed_path(scene, cam, base, want, "uncompacted")
+    comp = dataclasses.replace(base, compaction=sched)
+    img, over, _ = timed_path(scene, cam, comp, want,
+                              f"compaction={np.round(sched, 4).tolist()}")
+    log(f"compacted vs uncompacted: max |diff| "
+        f"{(img - plain).abs().max().item():.3g}")
+    if over:
+        raise AssertionError(f"the 1.5x schedule overflowed ({over} lanes)")
+    if not torch.allclose(img, plain, rtol=1e-5, atol=1e-6):
+        raise AssertionError("compacted alpha render differs")
+    # K5 and K7 (and K6) on the shrunk wavefront, K7 on the scene's own
+    # alphas: one more compacted render, not timed
+    with capture(cluster_intersect={"first compacted width": first_shrunk},
+                 cluster_transmittance={"shadow rays at the first "
+                                        "compacted width": first_shrunk}
+                 ) as got:
+        timed_path(scene, cam, comp, want, "compacted, captured")
+    merge_errs(errs, compare_captured("translucent compacted", got,
+                                      alpha_cl=scene.clusters))
+    del got
+
+    log("== phase 15.4: compacted renders against the stored JAX renders")
+    for name in ("compact-mis", "compact-overflow"):
+        against_integrator_reference(name, dev)
+    return errs
+
+
+# ------------------------------------------------------------------ phase 16
+
+def phase_light_naive(dev) -> dict:
+    """Light tracing and naive PT at full width, the kernels against their
+    plain versions on each render's inputs, the CHECK_LT pass, and against
+    the stored JAX renders. Returns the kernels' max abs errors."""
+    import dataclasses
+
+    from tuturenderer_tpu_torch.integrators import light, naive
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.tools.time_kernels import at, capture
+    log("== phase 16: light tracing and naive PT: simple_box(1024, 1024) "
+        "and sphere_showcase(512, 512) (lt_max_depth 4) at 16 spp; "
+        "launches per sample: light (max(lt_max_depth, 2) - 1) nearest and "
+        "max(lt_max_depth, 2) any hit, naive (max(lt_max_depth, 2) - 1) "
+        "nearest")
+    # warm-up at a small size (lazy module loads); not counted
+    s_small, c_small = simple_box(32, 32, device=dev)
+    light.render(s_small, c_small, RenderOptions(spp=1))
+    naive.render(s_small, c_small, RenderOptions(spp=1))
+    scenes = {"simple_box": (lambda: simple_box(1024, 1024, device=dev),
+                             RenderOptions(spp=16), ("nearest", "anyhit")),
+              "sphere_showcase": (
+                  lambda: sphere_showcase(512, 512, device=dev),
+                  RenderOptions(spp=16, lt_max_depth=4),
+                  ("cluster_nearest", "cluster_anyhit"))}
+    errs = {}
+    for key, (make, opts, (near, occ)) in scenes.items():
+        scene, cam = make()
+        steps = max(opts.lt_max_depth, 2) - 1
+        # the inputs one sample of each gives the kernels (not timed): the
+        # light walk's first nearest hits, its direct (light to camera)
+        # and first connection shadow rays; the naive walk's last step
+        wrappers = ("tri_intersect", "tri_occluded") if near == "nearest" \
+            else ("cluster_intersect", "cluster_occluded")
+        one = dataclasses.replace(opts, spp=1)
+        for name, mod, picks in (
+                ("light", light, {wrappers[0]: {"walk step 1": at(0)},
+                                  wrappers[1]: {"direct": at(0),
+                                                "connection 1": at(1)}}),
+                ("naivept", naive, {wrappers[0]: {
+                    f"walk step {steps}": at(steps - 1)}})):
+            with capture(**picks) as got:
+                mod.render(scene, cam, one, 0)
+            merge_errs(errs, compare_captured(f"{name} {key}", got))
+            del got
+        for name, mod, want in (
+                ("light", light, {near: opts.spp * steps,
+                                  occ: opts.spp * (steps + 1)}),
+                ("naivept", naive, {near: opts.spp * steps})):
+            img, wall, launches = timed(
+                lambda: mod.render(scene, cam, opts, 0))
+            paths = cam.n_pixels * opts.spp
+            log(f"{name} {key} {cam.width}x{cam.height} x {opts.spp} spp: "
+                f"wall={wall:.3f} s, {paths / wall / 1e6:.3f} Mpaths/s, "
+                f"image mean {img.mean().item():.6f}")
+            check_launches(launches, want)
+            if not bool(torch.isfinite(img).all()) or \
+                    tuple(img.shape) != (cam.height, cam.width, 3):
+                raise AssertionError(f"{name} {key}: bad image")
+        err = light.raster_roundtrip_error(scene, cam).item()
+        check = light.raster_check(scene, cam, opts)
+        log(f"raster_roundtrip_error {key}: {err:.6f}; raster_check image "
+            f"mean {check.mean().item():.6f}")
+        del scene, cam
+    # the CHECK_LT pass at 24x20: the card against the CPU
+    for key, make in (("simple_box", simple_box),
+                      ("sphere_showcase", lambda w, h, device: sphere_showcase(
+                          w, h, nu=46, nv=46, device=device))):
+        rt = [float(light.raster_roundtrip_error(*make(*REF_SIZE,
+                                                       device=d)))
+              for d in (dev, "cpu")]
+        log(f"raster_roundtrip_error {key} 24x20: card {rt[0]:.6f}, CPU "
+            f"{rt[1]:.6f}")
+        if abs(rt[0] - rt[1]) > 2.0 / (REF_SIZE[0] * REF_SIZE[1]):
+            raise AssertionError(f"{key}: raster round trip differs")
+    log("== phase 16.2: light and naive renders against the stored JAX "
+        "renders")
+    for name in ("lt-box", "naive-box", "lt-showcase", "naive-showcase"):
+        against_integrator_reference(name, dev)
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1269,6 +1792,16 @@ def main() -> int:
     phase_training_steps(dev)
     phase_grad_references(dev)
     visit_launches, visit_err, visit = phase_visit(dev)
+    t_new = time.perf_counter()
+    # phases 14-16 hold each kernel to its plain version on the inputs of
+    # the new paths too: their errors join the kernels line's
+    for new_errs in (phase_golden(dev), phase_compaction(dev),
+                     phase_light_naive(dev)):
+        merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
+        merge_errs(cl_errs, {k: v for k, v in new_errs.items()
+                             if k not in errs})
+    log(f"phases 14-16: {time.perf_counter() - t_new:.1f} s; the whole "
+        f"script: {time.perf_counter() - t_start:.1f} s")
     # K1/K2 launches from the simple_box render, K3/K4 from the dense
     # training path's forward+backward; times and bounds at simple_box's
     # 1,048,576 rays

@@ -473,3 +473,94 @@ def test_visit_walk_reports_its_sms(dev):
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert ids.shape[0] % 64 == 0 and ids.shape[0] >= 128
     assert bool((ids >= 0).all()) and bool((ids < n_sms).all())
+
+
+# ------------------------------------ the light tracer, naive PT, compaction
+
+def _launch_delta(before):
+    return {k: v - before[k] for k, v in K.LAUNCHES.items() if
+            v != before[k]}
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["dense", "cluster"])
+@pytest.mark.parametrize("integrator", ["light", "naivept"])
+def test_light_and_naive_go_through_the_kernels(dev, integrator, mesh):
+    """Per sample, light tracing launches max(lt_max_depth, 2) - 1 nearest
+    hits and one shadow call more (the direct splat); naive PT the nearest
+    hits only."""
+    from tuturenderer_tpu_torch.integrators import light, naive
+    if mesh:
+        scene, cam = sphere_showcase(32, 24, nu=46, nv=46, device=dev)
+        near, occ = "cluster_nearest", "cluster_anyhit"
+    else:
+        scene, cam = simple_box(32, 24, device=dev)
+        near, occ = "nearest", "anyhit"
+    opts = RenderOptions(spp=3, lt_max_depth=4)
+    mod = light if integrator == "light" else naive
+    before = dict(K.LAUNCHES)
+    img = mod.render(scene, cam, opts, 2)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    want = {near: 3 * 3}
+    if integrator == "light":
+        want[occ] = 3 * 4
+    assert _launch_delta(before) == want
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["dense", "cluster"])
+def test_compaction_on_the_card(dev, mesh):
+    """A shrink launches no kernel: a compacted render launches what the
+    uncompacted one does; the overflow count stays a device tensor; a
+    roomy schedule gives the uncompacted image up to float order."""
+    if mesh:
+        scene, cam = sphere_showcase(64, 48, nu=46, nv=46, device=dev)
+        opts = RenderOptions(spp=2, max_depth=3, alpha_shadows=True)
+        want = {"cluster_nearest": 2 * 5, "cluster_transmit": 2 * 4}
+    else:
+        scene, cam = simple_box(64, 48, device=dev)
+        opts = RenderOptions(spp=2, max_depth=3)
+        want = {"nearest": 2 * 5, "anyhit": 2 * 4}
+    plain = render(scene, cam, opts, seed=4)
+    for sched, overflows in (((1.0, 0.25), True), ((1.0, 1.0), False),
+                             ((1.0, 0.75), False)):
+        before = dict(K.LAUNCHES)
+        img, st = render(scene, cam, dataclasses.replace(
+            opts, compaction=sched), seed=4, stats=True)
+        assert _launch_delta(before) == want
+        over = st["compaction_overflow"]
+        assert over.device.type == "cuda" and over.dtype == torch.int32
+        assert (int(over) > 0) == overflows, (sched, int(over))
+        assert bool(torch.isfinite(img).all())
+        if not overflows:
+            torch.testing.assert_close(img, plain, rtol=1e-5, atol=1e-6)
+
+
+def test_render_config_on_the_card(tmp_path):
+    """render_config builds and renders on the card by default and hands
+    back a numpy image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch_port_util import golden_config
+    from tuturenderer_tpu_torch.render import render_config
+    path = golden_config("tex_128.txt", str(tmp_path), (32, 24))
+    before = dict(K.LAUNCHES)
+    img = render_config(path, RenderOptions(spp=2, max_depth=2),
+                        verbose=False)
+    assert isinstance(img, np.ndarray) and img.shape == (24, 32, 3)
+    assert np.isfinite(img).all() and img.mean() > 0.01
+    assert _launch_delta(before) == {"nearest": 2 * 4, "anyhit": 2 * 3}
+
+
+def test_non_finite_raster_is_outside_on_the_card(dev):
+    """CUDA casts a NaN raster coordinate to 0, an accepted column; the
+    port's world_to_pixel_index gives -1 for any non-finite one."""
+    from tuturenderer_tpu_torch.camera import (importance_we, make_camera,
+                                               world_to_pixel_index)
+    from tuturenderer_tpu_torch.utils.vec import Vec3
+    cam = make_camera(24, 20, 60, eye=(0, 0, -3.2), viewdir=(0, 0, 1),
+                      updir=(0, 1, 0), device=dev)
+    pts = Vec3(*(torch.tensor(c, device=dev) for c in
+                 ([0.0, 0.5, 0.0], [0.0, 0.1, 0.0], [-3.2, -3.2, 0.0])))
+    idx = world_to_pixel_index(cam, pts)
+    assert idx[:2].tolist() == [-1, -1] and int(idx[2]) >= 0
+    we, _ = importance_we(cam, pts)
+    assert we[:2].tolist() == [0.0, 0.0]

@@ -42,6 +42,7 @@ from tuturenderer_tpu_torch.camera import camera_from_numpy, primary_ray
 from tuturenderer_tpu_torch.integrators.path import render, trace_rays
 from tuturenderer_tpu_torch.models.scenes import sphere_showcase
 from tuturenderer_tpu_torch.options import RenderOptions
+from tuturenderer_tpu_torch.render import render_image
 from tuturenderer_tpu_torch.scene.data import scene_from_numpy
 from tuturenderer_tpu_torch.scene.presets import simple_box
 
@@ -122,12 +123,17 @@ def test_samples_per_launch_and_sample_base_keep_the_stream(port_box):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("opts", [
-    RenderOptions(spp=1, compaction=(1.0, 0.5))], ids=["compaction"])
-def test_unported_options_raise(port_box, opts):
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(integrator="bdpt"), "12b"), (dict(postprocess=True), "13b")],
+    ids=["bdpt", "postprocess"])
+def test_unported_options_raise(port_box, kwargs, item):
+    """What the port does not serve yet raises, naming its ROADMAP item.
+    Compaction, the last option the path tracer refused, is served now
+    (tests/test_torch_compaction*.py)."""
     scene, cam = port_box
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        render(scene, cam, opts)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1 item {item}"):
+        render_image(scene, cam, RenderOptions(spp=1), **kwargs)
 
 
 # ------------------------------------------------ the mesh-scale slice

@@ -1,7 +1,9 @@
 """``tuturenderer_tpu_torch/tools/time_kernels.py`` on the CPU: the parts
 that are not timing. Its bounce-wavefront capture hands the cluster
 kernels' inputs over unchanged, its alpha table changes the alphas of the
-real rows alone, and without a card it refuses to run."""
+real rows alone, its capture of chosen kernel calls takes the calls its
+picks name and changes no render, and without a card it refuses to
+run."""
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,45 @@ def test_wavefront_and_alpha_table():
     assert alpha_cl.bvh_rows is cl.bvh_rows
     trans = C.cluster_transmittance(alpha_cl, *occ)
     assert bool((trans < 1.0).any()) and bool((trans > 0.0).any())
+
+
+def test_capture_takes_the_picked_calls_and_changes_no_render():
+    """simple_box(64, 64) under compaction (1.0, 0.25): 4,096 camera rays,
+    then 1,024-lane wavefronts. The picks take the camera rays and the
+    first shrunk calls; the render and its launches are those of a render
+    without the capture; the wrappers are restored; a pick that matches
+    no call raises."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.ops import intersect as I
+    from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    scene, cam = simple_box(64, 64, device="cpu")
+    opts = RenderOptions(spp=1, compaction=(1.0, 0.25))
+    orig = (I.tri_intersect, I.tri_occluded)
+
+    def counted(fn):
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        return fn(), dict(LAUNCHES)
+
+    want, want_n = counted(lambda: render(scene, cam, opts, 0))
+    with TK.capture(tri_intersect={"camera": TK.at(0),
+                                   "shrunk": TK.first_shrunk},
+                    tri_occluded={"shrunk": TK.first_shrunk}) as got:
+        img, n = counted(lambda: render(scene, cam, opts, 0))
+    assert torch.equal(img, want) and n == want_n
+    assert (I.tri_intersect, I.tri_occluded) == orig
+    table, cam_rays = got["tri_intersect"]["camera"]
+    assert len(cam_rays) == 6 and cam_rays[0].shape == (4096,)
+    assert torch.equal(table, I.pack_triangles_woop(scene))
+    assert got["tri_intersect"]["shrunk"][1][0].shape == (1024,)
+    shadow = got["tri_occluded"]["shrunk"][1]
+    assert len(shadow) == 7 and shadow[6].shape == (1024,)
+    with pytest.raises(RuntimeError, match="no call matched"):
+        with TK.capture(tri_intersect={"none": TK.at(99)}):
+            render(scene, cam, opts, 0)
+    assert (I.tri_intersect, I.tri_occluded) == orig
 
 
 @pytest.mark.parametrize("form", ["woop", "mt"])

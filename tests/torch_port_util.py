@@ -19,9 +19,22 @@
   held to, ``GRAD_REFS`` where each is stored (``make_torch_grad_refs.py``:
   the scene, camera, image and gradient leaves in one ``.npz``), and
   ``jax_grad_case`` computes one with the JAX package;
+- ``INTEGRATOR_CASES`` name the light-tracing, naive path-tracing and
+  compaction renders held to stored JAX renders, ``INTEGRATOR_REFS``
+  where each is stored (``make_torch_integrator_refs.py``: the image,
+  for a compacted render the overflow count, and ``integrator_case``, how
+  it was rendered, in one ``.npz``), and
+  ``jax_integrator_render`` renders one with the JAX package;
+  ``check_stored_reference`` and ``check_compacted_render`` hold a stored
+  render and the port's compacted render to a JAX render;
+- ``golden_config`` copies a config of ``golden/`` into a directory with
+  its texture paths pointed at this checkout's ``golden/tex/`` (the files
+  name them by an absolute path, valid only where the repository was
+  when they were written) and, optionally, another ``imsize``;
 - ``bvh_walk`` walks the port's BVH (``Clusters.bvh_*``) one ray at a time
   in float32 numpy, as ``csrc/bvh_walk.cu`` walks it in each of its three
   modes, so the CPU tests check the tree where the kernel cannot run;
+- importing it sets one intra-op thread per process (see below);
 - ``special_verts`` and ``special_rays`` make triangles and rays that reach
   the dense kernels' edge cases (in-plane rays, det = +-0, inf and NaN
   values, subnormal products, exact t ties), for the CPU tests against
@@ -33,9 +46,18 @@ import contextlib
 import dataclasses
 import functools
 import importlib
+import json
 import os
 
 import numpy as np
+import torch
+
+# The suite runs its files in several worker processes at once (xdist);
+# an OpenMP pool as wide as the machine in each of them oversubscribes the
+# cores, and its spinning barriers then slow the plain tensor code of the
+# port's tests five-fold and more. One intra-op thread per process; every
+# worker imports this module when it collects the port's test files.
+torch.set_num_threads(1)
 
 REF_PATH = os.path.join(os.path.dirname(__file__), "data",
                         "torch_simple_box_jax_ref.npy")
@@ -227,6 +249,134 @@ def jax_grad_case(name: str) -> dict:
     for key, leaf in zip(GRAD_LEAVES, jax.tree.flatten(grads)[0]):
         out[f"grad.{key}"] = np.asarray(leaf)
     return out
+
+
+# the light tracer, the naive path tracer and compaction: name ->
+# (integrator, scene, RenderOptions fields, (width, height)); REF_SPP spp
+# unless the fields say otherwise, seed REF_SEED. The showcase walks take
+# lt_max_depth 4: its light is out of view, so a 2-vertex naive walk
+# renders black. The compacted renders use an 80x64 frame, 5,120 lanes, so
+# a 0.25 width shrinks the wavefront (1,280 rounds up to 2,048 lanes); a
+# square frame puts simple_box's pixel centres on its quads' diagonals,
+# where the two packages can split a camera ray differently, and one lane
+# more or less alive changes every survivor's overflow weight
+COMPACT_SIZE = (80, 64)
+INTEGRATOR_CASES = {
+    "lt-box": ("light", "box", {}, REF_SIZE),
+    "naive-box": ("naivept", "box", {}, REF_SIZE),
+    "lt-showcase": ("light", "showcase", {"lt_max_depth": 4}, REF_SIZE),
+    "naive-showcase": ("naivept", "showcase", {"lt_max_depth": 4}, REF_SIZE),
+    "compact-mis": ("path", "box", {"compaction": (1.0, 0.5)}, COMPACT_SIZE),
+    "compact-overflow": ("path", "box", {"compaction": (1.0, 0.25)},
+                         COMPACT_SIZE),
+}
+INTEGRATOR_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
+                                      f"torch_{name.replace('-', '_')}"
+                                      "_jax_ref.npz")
+                   for name in INTEGRATOR_CASES}
+
+
+def integrator_fields(name: str) -> dict:
+    """The RenderOptions fields of an INTEGRATOR_CASES entry, spp
+    included."""
+    return {"spp": REF_SPP, **INTEGRATOR_CASES[name][2]}
+
+
+def jax_integrator_render(name: str) -> dict:
+    """{"image"} (and {"compaction_overflow"} for a compacted render) of an
+    INTEGRATOR_CASES entry, rendered by the JAX package: simple_box through
+    its dense Pallas kernels in interpret mode, the showcase through its CPU
+    route (its XLA BVH)."""
+    import importlib as il
+
+    from tuturenderer_tpu.models.scenes import sphere_showcase
+    from tuturenderer_tpu.options import RenderOptions
+    from tuturenderer_tpu.scene.presets import simple_box
+    integrator, kind, _, size = INTEGRATOR_CASES[name]
+    module = {"path": "path", "light": "light", "naivept": "naive"}
+    run = il.import_module(
+        f"tuturenderer_tpu.integrators.{module[integrator]}").render
+    opts = RenderOptions(**integrator_fields(name))
+    if kind == "showcase":
+        scene, cam = sphere_showcase(*size, nu=SHOWCASE_NU, nv=SHOWCASE_NV)
+        ctx = contextlib.nullcontext()
+    else:
+        scene, cam = simple_box(*size)
+        ctx = jax_dense_pallas_interpret()
+    with ctx:
+        if integrator == "path":
+            img, st = run(scene, cam, opts, REF_SEED, stats=True)
+            return {"image": np.asarray(img), "compaction_overflow":
+                    np.asarray(st["compaction_overflow"])}
+        return {"image": np.asarray(run(scene, cam, opts, REF_SEED))}
+
+
+def compact_port_box():
+    """The port's (scene, camera) of simple_box at COMPACT_SIZE, from the
+    tables JAX builds, on the CPU."""
+    from tuturenderer_tpu.scene.presets import simple_box
+    from tuturenderer_tpu_torch.camera import camera_from_numpy
+    from tuturenderer_tpu_torch.scene.data import scene_from_numpy
+    scene, cam = simple_box(*COMPACT_SIZE)
+    return scene_from_numpy(flatten(scene), device="cpu"), \
+        camera_from_numpy(flatten(cam), device="cpu")
+
+
+def integrator_case(name: str) -> np.ndarray:
+    """How an INTEGRATOR_CASES entry is rendered, as the JSON text its
+    ``.npz`` stores under ``case`` (chip_smoke.py reads it from there):
+    the integrator, the preset and its keywords, the image size, the
+    RenderOptions fields and the seed."""
+    integrator, kind, _, size = INTEGRATOR_CASES[name]
+    scene = {"box": ("simple_box", {}),
+             "showcase": ("sphere_showcase",
+                          {"nu": SHOWCASE_NU, "nv": SHOWCASE_NV})}[kind]
+    return np.asarray(json.dumps({
+        "integrator": integrator, "scene": scene[0], "scene_kw": scene[1],
+        "size": list(size), "options": integrator_fields(name),
+        "seed": REF_SEED}, sort_keys=True))
+
+
+def check_stored_reference(name: str, out: dict):
+    """The stored ``.npz`` of an INTEGRATOR_CASES entry holds ``out`` and
+    the entry's ``integrator_case``."""
+    want = {**out, "case": integrator_case(name)}
+    stored = np.load(INTEGRATOR_REFS[name])
+    assert sorted(stored.files) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(stored[key], want[key])
+
+
+def check_compacted_render(name: str, want: dict, scene, cam) -> int:
+    """The port's render of a compacted INTEGRATOR_CASES entry against the
+    JAX package's ``want``: the overflow count equal, the image at the
+    path tracer's bar. Returns the count."""
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.options import RenderOptions
+    img, st = render(scene, cam, RenderOptions(**integrator_fields(name)),
+                     REF_SEED, stats=True)
+    over = int(st["compaction_overflow"])
+    assert over == int(want["compaction_overflow"])
+    got, ref = img.numpy(), want["image"]
+    close = np.isclose(got, ref, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(got.mean() - ref.mean()) <= 0.005 * ref.mean()
+    return over
+
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "golden")
+
+
+def golden_config(name: str, directory: str, imsize=None) -> str:
+    """Copy ``golden/<name>`` into ``directory`` with each texture path
+    pointed at the file of that name in this checkout's ``golden/tex/``
+    and, given ``imsize`` (width, height), that image size. Returns the
+    copy's path."""
+    from tuturenderer_tpu_torch.scene.config import relocate_config
+    return relocate_config(os.path.join(GOLDEN_DIR, name),
+                           os.path.join(directory, name),
+                           os.path.join(GOLDEN_DIR, "tex"), imsize)
 
 
 def _slab(box, o, inv, bound):

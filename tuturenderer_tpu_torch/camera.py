@@ -3,9 +3,11 @@
 The camera model of ``tuturenderer_tpu/camera.py`` (Camera.hpp:12-48, image
 plane setup PathTracing.hpp:357-391): the host computes the plane corners
 and steps in float64 and the device functions read them as float32 tensors.
-The raster/importance functions (``world_to_raster``,
-``world_to_pixel_index``, ``importance_we``) serve light tracing and come
-with it.
+The world->raster chain world2Cam -> perspective(near=0.1, far=1e4) ->
+translate(1,1,0) -> scale(w/2, h/2) (Camera.hpp:32-40, Vector.hpp:352-373)
+serves the light-tracing splats and the camera importance ``We``
+(IIntegrator.hpp:233-248): ``world_to_raster``, ``world_to_pixel_index``
+and ``importance_we``.
 """
 from __future__ import annotations
 
@@ -189,3 +191,48 @@ def primary_ray(cam: Camera, px, py, jx=None, jy=None):
     orig = Vec3(zeros + cam.position.x, zeros + cam.position.y,
                 zeros + cam.position.z)
     return orig, rdir, p
+
+
+def world_to_raster(cam: Camera, pos: Vec3):
+    """Project world point -> (raster_x, raster_y) after perspective divide,
+    with the -0.5 shift from Camera.hpp:60-66."""
+    m = cam.world2raster
+    x = m[0, 0] * pos.x + m[0, 1] * pos.y + m[0, 2] * pos.z + m[0, 3]
+    y = m[1, 0] * pos.x + m[1, 1] * pos.y + m[1, 2] * pos.z + m[1, 3]
+    w = m[3, 0] * pos.x + m[3, 1] * pos.y + m[3, 2] * pos.z + m[3, 3]
+    inv_w = 1.0 / w
+    return x * inv_w - 0.5, y * inv_w - 0.5
+
+
+def world_to_pixel_index(cam: Camera, pos: Vec3):
+    """Flat pixel index (int32) for a world point; -1 when outside the
+    frustum (Camera.hpp:51-78).
+
+    Bounds are checked on the TRUNCATED ints, exactly like the C code
+    (``int x = (int)raster.x; if (x < 0 ...)``, Camera.hpp:52-55): the cast
+    truncates toward zero, so raster values in (-1, 0) fold onto row/column
+    0 and are accepted. A non-finite raster coordinate gives -1: casting one
+    to int is undefined in C and differs between XLA, torch on the CPU and
+    torch on CUDA (XLA on the CPU and CUDA turn NaN into 0, an accepted
+    column)."""
+    rx, ry = world_to_raster(cam, pos)
+    finite = torch.isfinite(rx) & torch.isfinite(ry)
+    ix = torch.where(finite, rx, -1.0).to(torch.int32)
+    iy = torch.where(finite, ry, -1.0).to(torch.int32)
+    inside = finite & (ix >= 0) & (ix < cam.width) & (iy >= 0) & \
+        (iy < cam.height)
+    return torch.where(inside, ix + cam.width * iy, -1)
+
+
+def importance_we(cam: Camera, pos: Vec3):
+    """Camera importance function We (IIntegrator.hpp:233-248): zero outside
+    the frustum, else d_pixel^2 / (lensArea * filmArea * cos^2). Returns
+    (We, pixel index)."""
+    idx = world_to_pixel_index(cam, pos)
+    to_cam = Vec3(cam.position.x - pos.x, cam.position.y - pos.y,
+                  cam.position.z - pos.z).normalized(1e-20)
+    cos_cam = cam.fwd.dot(-to_cam).abs()
+    dist = cam.image_plane_dist / torch.clamp(cos_cam, min=1e-20)
+    we = dist * dist * cam.lens_area_inv * cam.film_area_inv / \
+        torch.clamp(cos_cam * cos_cam, min=1e-20)
+    return torch.where(idx >= 0, we, 0.0), idx

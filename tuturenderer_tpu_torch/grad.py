@@ -12,8 +12,9 @@ for roughness under full MIS (``tests/test_grad.py``).
 
 The material table is gathered per lane by plain indexing, whose autograd
 backward is the scatter-add the JAX package writes as a custom VJP.
-``render_light_diff`` and ``render_bdpt_diff`` come with the other
-integrators (ROADMAP queue 1 item 12).
+``render_light_diff`` and ``render_bdpt_diff`` come with the BDPT
+integrator (ROADMAP queue 1 item 12b): the light tracer's replayed backward
+has to route gradients through its direct pane's max-combine.
 """
 from __future__ import annotations
 
@@ -186,12 +187,12 @@ def render_diff(params: MaterialParams, scene: SceneData, cam: Camera,
 
 def render_light_diff(*args, **kwargs):
     raise NotImplementedError(
-        "the differentiable light tracer comes with ROADMAP queue 1 item 12")
+        "the differentiable light tracer comes with ROADMAP queue 1 item 12b")
 
 
 def render_bdpt_diff(*args, **kwargs):
     raise NotImplementedError(
-        "the differentiable BDPT renderer comes with ROADMAP queue 1 item 12")
+        "the differentiable BDPT renderer comes with ROADMAP queue 1 item 12b")
 
 
 def image_loss_and_grad(params: MaterialParams, target: torch.Tensor,

@@ -1,11 +1,10 @@
 """Wavefront unidirectional path tracer with NEE + power-heuristic MIS.
 
-The port of ``tuturenderer_tpu/integrators/path.py`` on its main path: the
-MIS estimator without compaction. One wavefront of lanes is traced through
-a Python loop of ``max_depth + 1`` bounces and an epilogue; per-material
-virtual calls are masked blends and finished lanes carry a dead mask. The
-estimator is the reference's recursive ``traceRay``
-(PathTracing.hpp:136-349):
+The port of ``tuturenderer_tpu/integrators/path.py``. One wavefront of
+lanes is traced through a Python loop of ``max_depth + 1`` bounces and an
+epilogue; per-material virtual calls are masked blends and finished lanes
+carry a dead mask. The estimator is the reference's recursive
+``traceRay`` (PathTracing.hpp:136-349):
 
 - camera rays through pixel centers (PathTracing.hpp:377-391, 444);
 - at each vertex: NEE light sample with solid-angle-converted MIS weight
@@ -40,8 +39,15 @@ cluster tables. The JAX package keeps a cluster scene's wavefront sorted in
 octant-Morton order for its TPU tiles; the port traces it unsorted, so
 lanes stay in the caller's order.
 
-Not served yet, raising ``NotImplementedError`` with its ROADMAP item:
-``compaction``.
+``compaction`` (a per-bounce schedule of live-lane fractions) shrinks the
+wavefront between bounces, the JAX package's unsorted branch: every lane
+flushes its radiance into a full-width film keyed by its original lane,
+then the live lanes, ordered by a random key per lane (dead lanes last),
+fill the narrower wavefront. When more lanes are live than fit, that key
+picks a uniformly random subset, whose weights are scaled by live/kept, so
+the estimate stays unbiased; the number of live lanes dropped so is
+counted on the device (``collect_overflow``, ``render(stats=True)``).
+A shrink launches no kernel, so the launch counts are those above.
 """
 from __future__ import annotations
 
@@ -68,20 +74,6 @@ FROM_BSDF = 1       # BSDF sample of a non-refractive vertex (MIS pending)
 FROM_REFRACT = 2    # calcForRefractive continuation
 FROM_MIRROR = 3     # NEE-only mode: calcForMirror continuation
 FROM_INDIRECT = 4   # NEE-only mode: indirect-illumination continuation
-
-# options this package does not serve yet: (asked for?, what, the ROADMAP
-# queue 1 item that brings it)
-_UNPORTED = (
-    (lambda o: bool(o.compaction), "wavefront compaction", 9),
-)
-
-
-def _check_options(opts: RenderOptions):
-    for asked, what, item in _UNPORTED:
-        if asked(opts):
-            raise NotImplementedError(
-                f"{what} comes with ROADMAP queue 1 item {item}")
-
 
 def _detacher(opts: RenderOptions):
     """The JAX package's ``sg``: ``.detach()`` of a tensor or a Vec3 when
@@ -160,14 +152,16 @@ def apply_textures(scene: SceneData, hit, params: MatParams):
 
 def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
                lane, sample_idx, seed, opts: RenderOptions,
-               collect_alive: bool = False):
+               collect_alive: bool = False, collect_overflow: bool = False):
     """Trace one wavefront of primary rays to completion; returns per-lane
     radiance (one Monte Carlo sample per lane).
 
-    ``collect_alive=True`` also returns an int64 tensor of the live lane
-    count entering each bounce plus the lanes still pending after the loop,
-    the data behind honest rays/s accounting."""
-    _check_options(opts)
+    ``collect_alive=True`` (without compaction) also returns an int64
+    tensor of the live lane count entering each bounce plus the lanes
+    still pending after the loop, the data behind honest rays/s
+    accounting. ``collect_overflow=True`` also returns the number of live
+    lanes the compaction roulette dropped (and compensated for), an int32
+    0-d tensor on the device."""
     n = orig.x.shape[0]
     dev = orig.x.device
     eta_scene = scene.eta
@@ -193,6 +187,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         rr_inv=torch.zeros((n,), dtype=torch.float32, device=dev),
         cont_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
         em_ok=torch.zeros((n,), dtype=torch.bool, device=dev),
+        **_lane_keys(lane, smp),
     )
 
     def bounce(st, depth: int):
@@ -201,10 +196,12 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         w = st['w']
         L = st['L']
         from_kind = st['from_kind']
-        z3 = _zeros3(n, dev)
-        one = torch.ones((n,), dtype=torch.float32, device=dev)
+        nn = o.x.shape[0]                   # the (possibly compacted) width
+        z3 = _zeros3(nn, dev)
+        one = torch.ones((nn,), dtype=torch.float32, device=dev)
 
-        u = lambda purpose: rng.uniform(seed, lane, smp, depth, purpose)
+        u = lambda purpose: rng.uniform(seed, st['lane'], st['smp'], depth,
+                                        purpose)
 
         core = intersect_core(scene, o, d, mask=alive)
         hit = shade_hit(scene, o, d, core)
@@ -341,7 +338,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         cos_n = hit.ng.dot(wi).abs()
 
         #   RR draw happens at this vertex (PathTracing.hpp:263-268)
-        tp_eff = tp if depth > opts.min_depth else _ones3(n, dev)
+        tp_eff = tp if depth > opts.min_depth else _ones3(nn, dev)
         rr_prob = sg(torch.clamp(tp_eff.max_component(), 0.0, 1.0)) \
             if opts.russian_roulette else one
         rr_survive = u(rng.RR) <= rr_prob
@@ -362,7 +359,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         new_from = torch.where(refr, FROM_REFRACT, FROM_BSDF).to(torch.int32)
         w_em = w * base
         w_next = vwhere(refr, w * base, w)
-        tp_next = vwhere(refr, _ones3(n, dev), tp_eff * coe)
+        tp_next = vwhere(refr, _ones3(nn, dev), tp_eff * coe)
 
         alive_next = alive & torch.where(refr, refr_ok, True)
         # non-refractive lanes stay "alive" into the next bounce even if
@@ -382,6 +379,7 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
             (mat_pdf == 1.0),
             w_em=w_em, rr_inv=rr_inv,
             cont_ok=cont_ok & alive, em_ok=em_ok & alive,
+            lane=st['lane'], smp=st['smp'], fkey=st['fkey'],
         )
 
     def epilogue(st):
@@ -405,30 +403,124 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         good = emissive & (cos_prime > 0.0) & st['em_ok'] & (light_pdf_a > 0)
         w_m = torch.where(good, w_m, 0.0)
         return L + vwhere(good, st['w_em'] * w_m * params.emission,
-                          _zeros3(n, dev))
+                          _zeros3(st['o'].x.shape[0], dev))
 
     if not opts.mis:
         st = dict(o=orig, d=d, L=_zeros3(n, dev), w=_ones3(n, dev),
                   tp=_ones3(n, dev),
                   alive=torch.ones((n,), dtype=torch.bool, device=dev),
                   from_kind=torch.full((n,), FROM_CAMERA, dtype=torch.int32,
-                                       device=dev))
-        bounce = functools.partial(_nee_bounce, scene, lane, smp, seed, opts)
+                                       device=dev),
+                  **_lane_keys(lane, smp))
+        bounce = functools.partial(_nee_bounce, scene, seed, opts)
         # nothing pays at depth max_depth+1: traceRay returns 0 before the
         # miss/emissive checks (PathTracing.hpp:140), and the NEE branch has
         # no pending emissive strategy
         epilogue = lambda st: st['L']
 
+    step = functools.partial(_remat, bounce) if opts.differentiable \
+        else bounce
+    if opts.compaction:
+        if collect_alive:
+            raise ValueError("collect_alive counts the uncompacted "
+                             "wavefront: pass compaction=()")
+        out, over = _compacted(st, step, epilogue, seed, opts)
+        return (out, over) if collect_overflow else out
+
     counts = []
     for depth in range(opts.max_depth + 1):
         if collect_alive:
             counts.append(st['alive'].sum())
-        st = _remat(bounce, st, depth) if opts.differentiable \
-            else bounce(st, depth)
+        st = step(st, depth)
     if collect_alive:
         counts.append(st['alive'].sum())
         return epilogue(st), torch.stack(counts)
+    if collect_overflow:
+        return epilogue(st), torch.zeros((), dtype=torch.int32, device=dev)
     return epilogue(st)
+
+
+def _lane_keys(lane, smp) -> dict:
+    """The per-lane keys a state carries through compaction: the lane and
+    sample ids every draw is keyed by, and the film slot (``fkey``) the
+    lane's radiance is flushed to."""
+    n = lane.shape[0]
+    return dict(lane=lane, smp=smp,
+                fkey=torch.arange(n, dtype=torch.int32, device=lane.device))
+
+
+def seg_width(n: int, frac: float) -> int:
+    """The wavefront width of a schedule fraction: ``n * frac`` rounded up
+    to a multiple of 1024 lanes, at most ``n``."""
+    return min(int(-(-int(n * frac) // 1024) * 1024), n)
+
+
+def _segments(opts: RenderOptions):
+    """[(fraction, [depths])]: consecutive bounces of one schedule fraction
+    (the last fraction repeats past the schedule's end)."""
+    segments = []
+    sched = opts.compaction
+    for depth in range(opts.max_depth + 1):
+        frac = sched[depth] if depth < len(sched) else sched[-1]
+        if segments and segments[-1][0] == frac:
+            segments[-1][1].append(depth)
+        else:
+            segments.append((frac, [depth]))
+    return segments
+
+
+def _flush(film: torch.Tensor, st) -> torch.Tensor:
+    """``film`` [n, 3] plus each lane's radiance at its film slot."""
+    return film.index_add(0, st['fkey'].long(),
+                          torch.stack(tuple(st['L']), dim=-1))
+
+
+def _compact(st, film, k: int, depth: int, seed):
+    """Shrink the wavefront to ``k`` lanes: flush every lane's radiance
+    into the film, order the lanes by their roulette key (a uniform draw
+    per live lane, 2.0 for a dead one; a stable sort, as ``jnp.argsort``)
+    and keep the first ``k``, their radiance reset. With more than ``k``
+    live lanes the kept ones carry weights scaled by live/k, which keeps
+    the estimate unbiased. Returns (state, film, live lanes dropped); the
+    count stays on the device."""
+    alive = st['alive']
+    cnt = alive.sum(dtype=torch.int32)
+    film = _flush(film, st)
+    pri = rng.uniform(seed, st['lane'], st['smp'], depth, rng.COMPACT)
+    key = torch.where(alive, pri, 2.0)
+    keep = torch.argsort(key, stable=True)[:k]
+    new = {name: (Vec3(*(c[keep] for c in v)) if isinstance(v, Vec3)
+                  else v[keep]) for name, v in st.items()}
+    dev = keep.device
+    new['L'] = _zeros3(k, dev)
+    new['alive'] = new['alive'] & \
+        (torch.arange(k, dtype=torch.int32, device=dev) < cnt)
+    factor = torch.where(cnt > k, cnt.to(torch.float32) / k, 1.0)
+    # scaling w and w_em also scales the continuation weight w_em * rr_inv,
+    # so the upweight covers every later payout
+    for name in ('w', 'w_em'):
+        if name in new:
+            new[name] = new[name] * factor
+    return new, film, torch.clamp(cnt - k, min=0)
+
+
+def _compacted(st, step, epilogue, seed, opts: RenderOptions):
+    """The bounce loop under ``opts.compaction``: each segment of the
+    schedule that narrows the wavefront starts with a shrink. Returns
+    (per-lane radiance at the original lanes, live lanes dropped)."""
+    n = st['o'].x.shape[0]
+    dev = st['o'].x.device
+    film = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    over = torch.zeros((), dtype=torch.int32, device=dev)
+    for frac, depths in _segments(opts):
+        k = seg_width(n, frac)
+        if k < st['o'].x.shape[0]:
+            st, film, dropped = _compact(st, film, k, depths[0], seed)
+            over = over + dropped
+        for depth in depths:
+            st = step(st, depth)
+    film = _flush(film, dict(fkey=st['fkey'], L=epilogue(st)))
+    return Vec3(film[:, 0], film[:, 1], film[:, 2]), over
 
 
 def _shadow(scene: SceneData, sh_orig: Vec3, sh_dir: Vec3, dist, mask,
@@ -442,8 +534,8 @@ def _shadow(scene: SceneData, sh_orig: Vec3, sh_dir: Vec3, dist, mask,
     return None, occluded(scene, sh_orig, sh_dir, dist, mask=mask)
 
 
-def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
-                st, depth: int):
+def _nee_bounce(scene: SceneData, seed, opts: RenderOptions, st,
+                depth: int):
     """One bounce of the NEE-only estimator (the reference's !MIS branch,
     PathTracing.hpp:281-347): light sampling is the only direct-light
     strategy, so emission is seen only on camera rays. Perfect mirrors take
@@ -465,7 +557,8 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
     z3 = _zeros3(n, dev)
     one = torch.ones((n,), dtype=torch.float32, device=dev)
 
-    u = lambda purpose: rng.uniform(seed, lane, smp, depth, purpose)
+    u = lambda purpose: rng.uniform(seed, st['lane'], st['smp'], depth,
+                                    purpose)
 
     core = intersect_core(scene, o, d, mask=alive)
     hit = shade_hit(scene, o, d, core)
@@ -615,21 +708,27 @@ def _nee_bounce(scene: SceneData, lane, smp, seed, opts: RenderOptions,
     ray_o = vwhere(refr, ray_o_refr, vwhere(mirror, ray_o_mirr, ray_o_diff))
 
     return dict(o=ray_o, d=wi, L=L, w=w_next, tp=tp_next, alive=alive_next,
-                from_kind=new_from)
+                from_kind=new_from, lane=st['lane'], smp=st['smp'],
+                fkey=st['fkey'])
 
 
 def render_sample(scene: SceneData, cam: Camera, px, py, lane, sample_idx,
-                  seed, opts: RenderOptions) -> Vec3:
+                  seed, opts: RenderOptions, collect_overflow: bool = False):
+    """Per-lane radiance of one sample (a NaN sample counts as 0), and with
+    ``collect_overflow`` the compaction roulette's dropped-lane count."""
     if opts.jitter:
         jx = rng.uniform(seed, lane, sample_idx, 0, rng.PIXEL_JX)
         jy = rng.uniform(seed, lane, sample_idx, 0, rng.PIXEL_JY)
         o, d, _ = primary_ray(cam, px, py, jx, jy)
     else:
         o, d, _ = primary_ray(cam, px, py)
-    L = trace_rays(scene, cam, o, d, lane, sample_idx, seed, opts)
+    out = trace_rays(scene, cam, o, d, lane, sample_idx, seed, opts,
+                     collect_overflow=collect_overflow)
+    L, over = out if collect_overflow else (out, None)
     # NaN sample rejection (PathTracing.hpp:510-511)
     bad = torch.isnan(L.x) | torch.isnan(L.y) | torch.isnan(L.z)
-    return vwhere(bad, _zeros3(px.shape[0], px.device), L)
+    L = vwhere(bad, _zeros3(px.shape[0], px.device), L)
+    return (L, over) if collect_overflow else L
 
 
 def _block_order(width: int, height: int, block: int = 32):
@@ -644,7 +743,7 @@ def _block_order(width: int, height: int, block: int = 32):
 
 
 def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
-           sample_base=0) -> torch.Tensor:
+           sample_base=0, stats: bool = False):
     """Full-frame render -> [H, W, 3] linear radiance on the scene's
     device. ``sample_base`` shifts the global sample indices so chunked
     renders continue the exact stream.
@@ -652,8 +751,11 @@ def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
     Lanes are emitted in 32x32 screen-block order, and
     ``opts.samples_per_launch`` > 1 batches that many spp into one
     wavefront (lane = (sample, blocked pixel)); the per-pixel sums are those
-    of the one-sample row-major schedule."""
-    _check_options(opts)
+    of the one-sample row-major schedule.
+
+    ``stats=True`` returns (img, {"compaction_overflow": int32 0-d tensor
+    on the device}): the live lanes the compaction roulette dropped over
+    the whole render, which the caller reads after its own sync."""
     dev = scene.device
     p = cam.n_pixels
     order_np = _block_order(cam.width, cam.height)
@@ -671,11 +773,17 @@ def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
 
     acc = [torch.zeros((p * sb,), dtype=torch.float32, device=dev)
            for _ in range(3)]
+    over = torch.zeros((), dtype=torch.int32, device=dev)
     for s in range(opts.spp // sb):
-        L = render_sample(scene, cam, px, py, pix, sample_base + s * sb + soff,
-                          seed, opts)
+        L, dropped = render_sample(scene, cam, px, py, pix,
+                                   sample_base + s * sb + soff, seed, opts,
+                                   collect_overflow=True)
         acc = [acc[0] + L.x, acc[1] + L.y, acc[2] + L.z]
+        over = over + dropped
     inv = 1.0 / opts.spp
     img = torch.stack([a.reshape(sb, p).sum(dim=0) * inv for a in acc],
                       dim=-1)
-    return img[inv_order.long()].reshape(cam.height, cam.width, 3)
+    img = img[inv_order.long()].reshape(cam.height, cam.width, 3)
+    if stats:
+        return img, {"compaction_overflow": over}
+    return img

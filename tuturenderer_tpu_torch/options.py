@@ -2,9 +2,9 @@
 ``tuturenderer_tpu/options.py`` so one options object means the same render
 in both packages. The fields are plain Python values.
 
-This package implements the unidirectional path tracer (MIS or NEE-only,
-``alpha_shadows``, ``differentiable``) without compaction;
-``integrators/path.py`` raises ``NotImplementedError`` for ``compaction``.
+The path tracer (compaction included), the light tracer and the naive
+path tracer read these fields; the BDPT fields wait for the BDPT
+integrator (ROADMAP queue 1 item 12b).
 """
 from __future__ import annotations
 

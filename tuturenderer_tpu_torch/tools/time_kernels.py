@@ -42,10 +42,14 @@ lines for the libraries it built, and per kernel the instructions,
 path) in ``cuobjdump -sass``; ``--sass DIR`` writes the whole listing
 there. ``--only`` times one family (``--dense-only`` is ``--only
 dense``). The last line is one JSON object, also written to ``--out``.
+
+``capture`` copies the inputs of chosen kernel calls of a render (the
+bounce wavefronts here; the new paths' inputs in ``chip_smoke.py``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -147,30 +151,66 @@ def dense_calls(dev) -> dict:
     return calls
 
 
+def at(i: int):
+    """A capture pick: the call of index ``i``."""
+    return lambda seen: len(seen) == i + 1
+
+
+def first_shrunk(seen) -> bool:
+    """A capture pick: the first call narrower than the first, one
+    compacted width."""
+    return seen[-1] < seen[0] and min(seen[:-1]) == seen[0]
+
+
+@contextlib.contextmanager
+def capture(**picks):
+    """Copy the inputs of chosen kernel calls of a render. Each keyword
+    names a kernel wrapper that ops/intersect.py calls (tri_intersect,
+    tri_occluded, cluster_intersect, cluster_occluded,
+    cluster_transmittance) and maps it to {label: pick}; a pick takes the
+    lane counts of that wrapper's calls so far, this one last. The yielded
+    dict gets, for each label, the (table, ray columns [+ dist]) of the
+    call its pick took; a label no call matched raises on exit. The calls
+    still go to the kernels and are counted as ever."""
+    from tuturenderer_tpu_torch.ops import intersect as I
+    got = {name: {} for name in picks}
+    orig = {name: getattr(I, name) for name in picks}
+
+    def wrap(name):
+        seen = []
+
+        def call(table, *cols, **kw):
+            seen.append(cols[0].shape[0])
+            for label, pick in picks[name].items():
+                if label not in got[name] and pick(seen):
+                    got[name][label] = (table, [c.clone() for c in cols])
+            return orig[name](table, *cols, **kw)
+        return call
+
+    for name in picks:
+        setattr(I, name, wrap(name))
+    try:
+        yield got
+    finally:
+        for name, fn in orig.items():
+            setattr(I, name, fn)
+    missed = [(n, label) for n, want in picks.items() for label in want
+              if label not in got[n]]
+    if missed:
+        raise RuntimeError(f"no call matched {missed}")
+
+
 def wavefront(scene, cam):
     """The inputs of the depth-1 nearest-hit and shadow calls of a 1-spp
     render: a bounce wavefront as the main path gives it to the kernels
     (dead lanes included, masked as the path masks them)."""
     from tuturenderer_tpu_torch.integrators.path import render
-    from tuturenderer_tpu_torch.ops import intersect as I
     from tuturenderer_tpu_torch.options import RenderOptions
-    calls = {"near": [], "occ": []}
-    orig = (I.cluster_intersect, I.cluster_occluded)
-
-    def near(cl, *a, **kw):
-        calls["near"].append([x.clone() for x in a])
-        return orig[0](cl, *a, **kw)
-
-    def occ(cl, *a, **kw):
-        calls["occ"].append([x.clone() for x in a])
-        return orig[1](cl, *a, **kw)
-
-    I.cluster_intersect, I.cluster_occluded = near, occ
-    try:
+    with capture(cluster_intersect={"depth 1": at(1)},
+                 cluster_occluded={"depth 1": at(1)}) as got:
         render(scene, cam, RenderOptions(spp=1), seed=0)
-    finally:
-        I.cluster_intersect, I.cluster_occluded = orig
-    return calls["near"][1], calls["occ"][1]
+    return got["cluster_intersect"]["depth 1"][1], \
+        got["cluster_occluded"]["depth 1"][1]
 
 
 def alpha_table(clusters, dev):
