@@ -45,9 +45,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    RenderOptions(spp=16))``, ``terrain(512, 512, nx=724, nz=724)`` at 4 spp
    and the translucent showcase (the sphere at alpha 0.5) at 256^2 x 4 spp
    with ``alpha_shadows``, each with its exact launch counts;
-8. the mesh-scale renders at the stored JAX references' size against
-   those images (``tests/data/torch_*_jax_ref.npy``, made by
-   ``tests/data/make_torch_mesh_refs.py``);
+8. the mesh-scale renders against the stored JAX references
+   (``tests/data/torch_*_jax_ref.npz``, made by
+   ``tests/data/make_torch_mesh_refs.py``), each rendered as its file's
+   ``case`` says;
 9. the dense training path: forward and backward of
    ``mean(render_diff(simple_box(1024, 1024)))`` at 8 spp under the MT
    form (K3/K4), with exact launch counts, finite gradients, a central
@@ -59,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     on simple_box from a wrong red-wall albedo;
 12. the card's images and gradients against the stored JAX gradients
     (``tests/data/torch_grad_*_jax_ref.npz``, made by
-    ``tests/data/make_torch_grad_refs.py``);
+    ``tests/data/make_torch_grad_refs.py``), each computed as its file's
+    ``case`` says;
 13. the visit-walk probe (K8): ``tools/proto_visit.py``'s ``main`` (its two
     scenarios at 1,024 clusters and 64 tiles), then each scenario and the
     special planes (``proto_visit.special_planes``), with and without dead
@@ -99,13 +101,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     shadow rays, the CHECK_LT pass (``raster_check``,
     ``raster_roundtrip_error``), and four renders against the stored JAX
     renders (``tests/data/torch_{lt,naive}_*_jax_ref.npz``, made by
-    ``tests/data/make_torch_integrator_refs.py``).
+    ``tests/data/make_torch_integrator_refs.py``);
+17. BDPT (``integrators/bdpt.py``) on ``simple_box(1024, 1024)`` (K1/K2)
+    and ``sphere_showcase(512, 512)`` (K5/K6) at 16 spp and the default
+    bdpt_max_path_length 7: walls, Mpaths/s, peak device memory and the
+    launches (13 nearest hits and 1 any hit a wavefront), one wavefront's
+    device busy share under the profiler, the kernels against their plain
+    versions on a wavefront's eye and light walk and its single shadow
+    call over the 27 strategies' connection rays (28,311,552 rays on
+    both routes);
+18. ``render_config`` of ``golden/mesh_bdpt_128.txt`` (18,244 faces, BDPT
+    through K5/K6) at 128x128 x 64 spp under the oracle quirk profile,
+    seeds 9 and 23, held to ``golden/mesh_bdpt_128_ref.ppm`` with
+    tests/test_golden.py's ``compare`` at its bars for that config;
+19. four BDPT renders against the stored JAX renders
+    (``tests/data/torch_bdpt_*_jax_ref.npz``), one at the default
+    bdpt_max_path_length 7;
+20. forward and backward of ``mean(grad.render_light_diff(simple_box(1024,
+    1024)))`` at 2 and 8 spp and of ``mean(grad.render_bdpt_diff(
+    simple_box(512, 512)))`` at 1 and 4 spp: exact launches, finite
+    gradients, the peak device memory flat in spp, a central finite
+    difference of the red wall's diffuse red channel, K1/K2 against their
+    plain versions on one forward sample of render_bdpt_diff; then both
+    against the stored JAX gradients (``tests/data/torch_grad_{lt,bdpt}_diffuse_
+    jax_ref.npz``).
 
-Every render of phases 14-16 is timed and its kernel launches are held to
+Every render of phases 14-20 is timed and its kernel launches are held to
 the count its log line's formula gives. Their kernel comparisons run on the
 inputs the render gave the kernel (``tools/time_kernels.py``'s
-``capture``, in one more render that is not timed), the plain versions on at most 65,536 of each call's rays, and
-their errors join the kernels line's ``max_abs_err``.
+``capture``, in one more render that is not timed, at the render's own
+wavefront width), the cluster plain versions on at most 65,536 of each
+call's rays, the dense ones on every ray, and their errors join the kernels
+line's ``max_abs_err``.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
@@ -156,21 +183,15 @@ FLOP_PER_MT_TEST = 55   # one Moller-Trumbore test (ops/pallas/intersect.py:146)
 FLOP_PER_PLANE = 12     # one K8 plane test: 6 mul, 5 add, 1 div
 SHADOW_DISTS = ((0.5, 0.0), (1.0, 0.0), (2.0, 0.0), (1.0, 5e-5),
                 (1.0, -5e-5), (1.0, 2e-4), (1.0, -2e-4))
-# the mesh-scale references: name -> (scene, RenderOptions fields), as in
-# tests/torch_port_util.py MESH_CASES (tests/data/make_torch_mesh_refs.py)
-# the stored JAX gradients: name -> RenderOptions fields, as in
-# tests/torch_port_util.py GRAD_CASES (tests/data/make_torch_grad_refs.py)
-GRAD_REFS = {"diffuse-mis": {"spp": 2, "max_depth": 3},
-             "ggx-nee": {"spp": 4, "max_depth": 0, "mis": False}}
-GRAD_SEED = 7
+# the stored JAX references each phase holds the card to, by name: each
+# ``tests/data/torch_<name>_jax_ref.npz`` says under ``case`` how it was
+# made (tests/data/make_torch_{mesh,grad,integrator}_refs.py), and the
+# card's run is made as the file says
+MESH_NAMES = ("showcase-mis", "showcase-nee", "translucent-alpha",
+              "box-nee", "box-alpha")
+GRAD_NAMES = ("diffuse-mis", "ggx-nee")
 GRAD_LEAVES = ("diffuse.x", "diffuse.y", "diffuse.z", "emission.x",
                "emission.y", "emission.z", "roughness", "metallic")
-MESH_REFS = {"showcase-mis": ("showcase", {}),
-             "showcase-nee": ("showcase", {"mis": False}),
-             "translucent-alpha": ("translucent", {"alpha_shadows": True}),
-             "box-nee": ("box", {"mis": False}),
-             "box-alpha": ("box", {"alpha_shadows": True})}
-
 
 def log(msg: str):
     print(msg, flush=True)
@@ -254,6 +275,21 @@ def dense_form(form: str) -> dict:
                 labels=("K3", "K4"))
 
 
+# the dense plain versions trace at most this many rays a call: BDPT's
+# single shadow call holds 27 x 1,048,576 rays at full width
+DENSE_PLAIN_RAYS = 1 << 22
+
+
+def by_slices(plain, table, cols):
+    """A dense plain version over consecutive slices of at most
+    DENSE_PLAIN_RAYS rays of ``cols``, its outputs joined."""
+    outs = [plain(table, *(c[lo:lo + DENSE_PLAIN_RAYS] for c in cols))
+            for lo in range(0, cols[0].shape[0], DENSE_PLAIN_RAYS)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 def compare_kernels(name: str, form: str, scene, rays, report: dict,
                     timed: bool = True, quiet: bool = False, shadows=None,
                     table=None):
@@ -262,8 +298,10 @@ def compare_kernels(name: str, form: str, scene, rays, report: dict,
     wherever t is unique, every any-hit mask equal. The any hits run at
     distances from the hit (SHADOW_DISTS), or on ``shadows`` ({label: 6
     ray columns + dist}) when given. ``table`` replaces the scene's packed
-    triangles. Returns the kernel and plain device times (ms), or {} when
-    not ``timed``. ``quiet`` logs nothing unless a comparison fails."""
+    triangles. Both trace every ray, the plain versions on consecutive
+    slices of at most DENSE_PLAIN_RAYS (``by_slices``). Returns the kernel
+    and plain device times (ms), or {} when not ``timed``. ``quiet`` logs
+    nothing unless a comparison fails."""
     from tuturenderer_tpu_torch.utils.timing import device_ms
     say = (lambda msg: None) if quiet else log
     f = dense_form(form)
@@ -272,7 +310,7 @@ def compare_kernels(name: str, form: str, scene, rays, report: dict,
         table = f["pack"](scene)
     name = f"{name} [{'/'.join(f['labels'])}]"
     tk, ik, uk, vk = f["near"](table, *rays)
-    tp, ip, up, vp = f["near_plain"](table, *rays)
+    tp, ip, up, vp = by_slices(f["near_plain"], table, rays)
     torch.cuda.synchronize()
     hk, hp = ik >= 0, ip >= 0
     n_split = int((hk != hp).sum())
@@ -309,7 +347,7 @@ def compare_kernels(name: str, form: str, scene, rays, report: dict,
     any_err = 0.0
     for label, cols in shadows.items():
         bk = f["occ"](table, *cols)
-        bp = f["occ_plain"](table, *cols)
+        bp = by_slices(f["occ_plain"], table, cols)
         n_diff = int((bk != bp).sum())
         any_err = max(any_err, float(n_diff > 0))
         say(f"  {name}: any-hit dist={label} rays={cols[0].shape[0]} "
@@ -890,8 +928,9 @@ def timed(fn):
     return out, time.perf_counter() - t0, dict(LAUNCHES)
 
 
-# the plain versions of phases 14-16 trace at most this many of a captured
-# call's rays (every n // PLAIN_RAYS-th); the kernels trace all of them
+# the cluster plain versions of phases 14-20 trace at most this many of a
+# captured call's rays (every n // PLAIN_RAYS-th); the kernels, and the
+# dense plain versions, trace all of them
 PLAIN_RAYS = 1 << 16
 
 
@@ -901,8 +940,8 @@ def compare_captured(name: str, got: dict, alpha_cl=None) -> dict:
     and every shadow call of
     ``got``, dense (K1/K2) or cluster (K5-K7; K7 on ``alpha_cl``, by
     default the scene's table with alphas drawn by ``alpha_table``), the
-    plain versions on at most PLAIN_RAYS rays of each. Returns the max abs
-    error per kernel."""
+    cluster plain versions on at most PLAIN_RAYS rays of each, the dense
+    ones on every ray. Returns the max abs error per kernel."""
     from tuturenderer_tpu_torch.tools.time_kernels import alpha_table
     near = {k: v for k, v in got.items() if k.endswith("intersect")}
     (near_name, calls), = near.items()
@@ -983,20 +1022,8 @@ def phase_mesh_slice(dev) -> dict:
 
 def phase_mesh_references(dev):
     log("== phase 8: mesh-scale renders against the stored JAX references")
-    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
-    from tuturenderer_tpu_torch.options import RenderOptions
-    from tuturenderer_tpu_torch.scene.presets import simple_box
-    w, h = REF_SIZE
-    make = {"showcase": lambda: sphere_showcase(w, h, nu=46, nv=46,
-                                                device=dev),
-            "translucent": lambda: translucent_showcase(w, h, nu=46, nv=46,
-                                                        device=dev),
-            "box": lambda: simple_box(w, h, device=dev)}
-    for name, (kind, fields) in MESH_REFS.items():
-        scene, cam = make[kind]()
-        path = f"tests/data/torch_{name.replace('-', '_')}_jax_ref.npy"
-        against_reference(name, scene, cam,
-                          RenderOptions(spp=REF_SPP, **fields), path)
+    for name in MESH_NAMES:
+        against_integrator_reference(name, dev)
 
 
 @contextlib.contextmanager
@@ -1011,13 +1038,15 @@ def dense_kernel(form: str):
         TI.DENSE_KERNEL = saved
 
 
-def fwd_bwd(scene, cam, opts, seed: int = 1):
-    """Forward and backward of mean(render_diff) with every launch count
-    zeroed just before -> (image, gradient leaves, wall s, launches, peak
-    device bytes during the call, bytes allocated before it)."""
-    from tuturenderer_tpu_torch.grad import (MaterialParams, get_params,
-                                             render_diff)
+def fwd_bwd(scene, cam, opts, seed: int = 1, renderer: str = "render_diff"):
+    """Forward and backward of mean(``renderer`` of grad.py) with every
+    launch count zeroed just before -> (image, gradient leaves, wall s,
+    launches, peak device bytes during the call, bytes allocated before
+    it)."""
+    from tuturenderer_tpu_torch import grad
+    from tuturenderer_tpu_torch.grad import MaterialParams, get_params
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
+    render_diff = getattr(grad, renderer)
     leaves = [a.detach().clone().requires_grad_(True)
               for a in get_params(scene).leaves()]
     torch.cuda.synchronize()
@@ -1036,7 +1065,7 @@ def fwd_bwd(scene, cam, opts, seed: int = 1):
     grads = [torch.zeros_like(a) if g is None else g
              for a, g in zip(leaves, grads)]
     if not bool(torch.isfinite(img).all()):
-        raise AssertionError("render_diff produced non-finite pixels")
+        raise AssertionError(f"{renderer} produced non-finite pixels")
     bad = [GRAD_LEAVES[i] for i, g in enumerate(grads)
            if not bool(torch.isfinite(g).all())]
     if bad:
@@ -1045,11 +1074,13 @@ def fwd_bwd(scene, cam, opts, seed: int = 1):
 
 
 def fd_check(name: str, scene, cam, opts, seed: int, leaf: int, idx: int,
-             ad: float, eps: float = 1e-2):
-    """Central finite difference of the image mean in one parameter, at the
-    gradient's seed; relative error < 0.05 (bench.py:183-195)."""
-    from tuturenderer_tpu_torch.grad import (MaterialParams, get_params,
-                                             render_diff)
+             ad: float, eps: float = 1e-2, renderer: str = "render_diff"):
+    """Central finite difference of the image mean of ``renderer`` (of
+    grad.py) in one parameter, at the gradient's seed; relative error
+    < 0.05 (bench.py:183-195)."""
+    from tuturenderer_tpu_torch import grad
+    from tuturenderer_tpu_torch.grad import MaterialParams, get_params
+    render_diff = getattr(grad, renderer)
     flat = get_params(scene).leaves()
 
     def loss(sign: float) -> float:
@@ -1223,42 +1254,56 @@ def phase_training_steps(dev):
                              "and move the albedo toward the truth")
 
 
-def phase_grad_references(dev):
-    log("== phase 12: the card's gradients against the stored JAX "
-        "gradients")
+def stored_reference(name: str):
+    """(arrays, case) of ``tests/data/torch_<name>_jax_ref.npz``."""
+    ref = dict(np.load(root_path(
+        "tests", "data", f"torch_{name.replace('-', '_')}_jax_ref.npz")))
+    return ref, json.loads(str(ref.pop("case")))
+
+
+def against_grad_reference(name: str, dev):
+    """The card's image and gradients of one stored JAX gradient case
+    (``tests/data/torch_grad_<name>_jax_ref.npz``: the scene and camera
+    tables and ``case``, the renderer, options and seed), in the
+    Moller-Trumbore dense form as the JAX package's CPU route computes: the
+    image at the render bar, each leaf within 1e-2 of its largest
+    magnitude."""
     from tuturenderer_tpu_torch.camera import camera_from_numpy
     from tuturenderer_tpu_torch.options import RenderOptions
     from tuturenderer_tpu_torch.scene.data import scene_from_numpy
-    root = os.path.dirname(os.path.abspath(__file__))
+    ref, case = stored_reference(f"grad-{name}")
+    sub = lambda pre: {k[len(pre):]: v for k, v in ref.items()
+                       if k.startswith(pre)}
+    scene = scene_from_numpy(sub("scene."), device=dev)
+    cam = camera_from_numpy(sub("camera."), device=dev)
     with dense_kernel("mt"):
-        for name, fields in GRAD_REFS.items():
-            path = f"tests/data/torch_grad_{name.replace('-', '_')}_jax_ref.npz"
-            ref = dict(np.load(os.path.join(root, path)))
-            sub = lambda pre: {k[len(pre):]: v for k, v in ref.items()
-                               if k.startswith(pre)}
-            scene = scene_from_numpy(sub("scene."), device=dev)
-            cam = camera_from_numpy(sub("camera."), device=dev)
-            img, grads, _, _, _, _ = fwd_bwd(scene, cam,
-                                             RenderOptions(**fields),
-                                             seed=GRAD_SEED)
-            img = img.cpu().numpy()
-            close = np.isclose(img, ref["image"], rtol=1e-4,
-                               atol=1e-5).all(axis=-1)
-            rel_mean = abs(img.mean() - ref["image"].mean()) / \
-                ref["image"].mean()
-            worst = 0.0
-            for key, g in zip(GRAD_LEAVES, grads):
-                want = ref[f"grad.{key}"]
-                scale = max(np.abs(want).max(), 1e-12)
-                worst = max(worst, np.abs(g.cpu().numpy() - want).max() /
-                            scale)
-            log(f"{name}: pixels within rtol 1e-4 / atol 1e-5: "
-                f"{close.mean() * 100:.2f}% (bar 99%), image mean rel "
-                f"{rel_mean:.2e} (bar 0.5%), worst gradient leaf error "
-                f"{worst:.3g} of its largest magnitude (bar 1e-2)")
-            if close.mean() < 0.99 or rel_mean > 0.005 or worst > 1e-2:
-                raise AssertionError(f"{name}: the card's gradients disagree "
-                                     "with the JAX reference")
+        img, grads, _, _, _, _ = fwd_bwd(scene, cam,
+                                         RenderOptions(**case["options"]),
+                                         seed=case["seed"],
+                                         renderer=case["renderer"])
+    img = img.cpu().numpy()
+    close = np.isclose(img, ref["image"], rtol=1e-4, atol=1e-5).all(axis=-1)
+    rel_mean = abs(img.mean() - ref["image"].mean()) / ref["image"].mean()
+    worst = 0.0
+    for key, g in zip(GRAD_LEAVES, grads):
+        want = ref[f"grad.{key}"]
+        scale = max(np.abs(want).max(), 1e-12)
+        worst = max(worst, np.abs(g.cpu().numpy() - want).max() / scale)
+    log(f"{name} ({case['renderer']}, {case['scene']}, {case['options']}): "
+        f"pixels within rtol 1e-4 / atol 1e-5: {close.mean() * 100:.2f}% "
+        f"(bar 99%), image mean rel {rel_mean:.2e} (bar 0.5%), worst "
+        f"gradient leaf error {worst:.3g} of its largest magnitude (bar "
+        f"1e-2)")
+    if close.mean() < 0.99 or rel_mean > 0.005 or worst > 1e-2:
+        raise AssertionError(f"{name}: the card's gradients disagree with "
+                             "the JAX reference")
+
+
+def phase_grad_references(dev):
+    log("== phase 12: the card's gradients against the stored JAX "
+        "gradients")
+    for name in GRAD_NAMES:
+        against_grad_reference(name, dev)
 
 
 def phase_visit(dev, nc: int = 1024, n_tiles: int = 64, reps: int = 10):
@@ -1481,27 +1526,24 @@ def phase_golden(dev) -> dict:
 # ------------------------------------------------------------------ phase 15
 
 def against_integrator_reference(name: str, dev):
-    """One stored JAX render of the light tracer, the naive path tracer or
-    compaction (``tests/data/torch_<name>_jax_ref.npz``, made by
-    ``tests/data/make_torch_integrator_refs.py``) rendered on the card as
-    the file's ``case`` says, at the CPU tests' bar; a compacted render's
-    overflow count equal to JAX's."""
-    from tuturenderer_tpu_torch.integrators import light, naive, path
-    from tuturenderer_tpu_torch.models import scenes
+    """One stored JAX render (``tests/data/torch_<name>_jax_ref.npz``, made
+    by ``tests/data/make_torch_{mesh,integrator}_refs.py``) rendered on the
+    card as the file's ``case`` says, at the CPU tests' bar; a compacted
+    render's overflow count equal to JAX's."""
+    from tuturenderer_tpu_torch.integrators import bdpt, light, naive, path
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
     from tuturenderer_tpu_torch.options import RenderOptions
-    from tuturenderer_tpu_torch.scene import presets
-    ref = np.load(root_path("tests", "data",
-                            f"torch_{name.replace('-', '_')}_jax_ref.npz"))
-    case = json.loads(str(ref["case"]))
-    make = getattr(presets if case["scene"] == "simple_box" else scenes,
-                   case["scene"])
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    ref, case = stored_reference(name)
+    make = {"simple_box": simple_box, "sphere_showcase": sphere_showcase,
+            "translucent_showcase": translucent_showcase}[case["scene"]]
     scene, cam = make(*case["size"], **case["scene_kw"], device=dev)
     opts = RenderOptions(**{k: tuple(v) if isinstance(v, list) else v
                             for k, v in case["options"].items()})
     run = {"path": path.render, "light": light.render,
-           "naivept": naive.render}[case["integrator"]]
+           "naivept": naive.render, "bdpt": bdpt.render}[case["integrator"]]
     extra = ""
-    if case["integrator"] == "path":
+    if "compaction_overflow" in ref:
         img, st = run(scene, cam, opts, case["seed"], stats=True)
         over, want = int(st["compaction_overflow"]), \
             int(ref["compaction_overflow"])
@@ -1771,6 +1813,205 @@ def phase_light_naive(dev) -> dict:
     return errs
 
 
+# ------------------------------------------------------------------ phase 17
+
+# wavefront widths of the full-width BDPT renders: one sample of simple_box
+# 1024^2 (1,048,576 lanes) and 4 of sphere_showcase 512^2 a launch; a BDPT
+# lane holds ~16 KB of device memory at its peak (15 vertices, 27 queued
+# strategies; NVIDIA H100 80GB HBM3, 700 W, phase 17)
+BDPT_SPL = {"simple_box": 1, "sphere_showcase": 4}
+
+
+def bdpt_launches(opts, nearest: str, shadow: str) -> dict:
+    """A BDPT render's launches: per wavefront bdpt_max_path_length eye
+    steps and bdpt_max_path_length - 1 light steps, one nearest hit each,
+    and one shadow call over every strategy's connection rays."""
+    batches = opts.spp // max(1, opts.samples_per_launch)
+    return {nearest: (2 * opts.bdpt_max_path_length - 1) * batches,
+            shadow: batches}
+
+
+def bdpt_errs(name: str, opts, wrappers, wavefront) -> dict:
+    """K1/K2 or K5/K6 against their plain versions on the inputs that
+    ``wavefront()``, one BDPT wavefront of the main path at its own width
+    (one more call, not timed), gives them: the eye walk's second
+    nearest-hit call, the light walk's first, and the single shadow call
+    over the 27 x n connection rays."""
+    from tuturenderer_tpu_torch.tools.time_kernels import at, capture
+    near, occ = wrappers
+    steps = opts.bdpt_max_path_length
+    with capture(**{near: {"eye step 2": at(1),
+                           "light step 1": at(steps)},
+                    occ: {"connections": at(0)}}) as got:
+        wavefront()
+    errs = {}
+    for label, shadows in (("eye step 2", True), ("light step 1", False)):
+        part = {near: {label: got[near][label]}}
+        if shadows:
+            part[occ] = got[occ]
+        merge_errs(errs, compare_captured(f"bdpt {name}", part))
+    return errs
+
+
+def phase_bdpt(dev) -> dict:
+    """BDPT at full width on both routes, each kernel against its plain
+    version on BDPT's own inputs, and one wavefront's device busy share.
+    Returns the kernels' max abs errors."""
+    import dataclasses
+
+    from tuturenderer_tpu_torch.integrators import bdpt
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    log("== phase 17: BDPT at full width: simple_box(1024, 1024) and "
+        "sphere_showcase(512, 512) x 16 spp at bdpt_max_path_length 7; "
+        "launches per wavefront 13 nearest hits (7 eye, 6 light steps) and "
+        "one any hit over the 27 strategies' connection rays")
+    # warm-up at a small size (lazy module loads); not counted
+    s_small, c_small = simple_box(32, 32, device=dev)
+    bdpt.render(s_small, c_small, RenderOptions(spp=1))
+    cases = {"simple_box": (lambda: simple_box(1024, 1024, device=dev),
+                            ("tri_intersect", "tri_occluded"),
+                            ("nearest", "anyhit")),
+             "sphere_showcase": (
+                 lambda: sphere_showcase(512, 512, device=dev),
+                 ("cluster_intersect", "cluster_occluded"),
+                 ("cluster_nearest", "cluster_anyhit"))}
+    errs = {}
+    for key, (make, wrappers, (near, occ)) in cases.items():
+        scene, cam = make()
+        opts = RenderOptions(spp=16, samples_per_launch=BDPT_SPL[key])
+        one = dataclasses.replace(opts, spp=opts.samples_per_launch)
+        merge_errs(errs, bdpt_errs(key, opts, wrappers, lambda: bdpt.render(
+            scene, cam, one, 0)))
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        img, wall, launches = timed(lambda: bdpt.render(scene, cam, opts, 0))
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        paths = cam.n_pixels * opts.spp
+        log(f"bdpt {key} {cam.width}x{cam.height} x {opts.spp} spp, "
+            f"samples_per_launch {opts.samples_per_launch} "
+            f"({cam.n_pixels * opts.samples_per_launch} lanes a wavefront): "
+            f"wall={wall:.3f} s, {paths / wall / 1e6:.3f} Mpaths/s, peak "
+            f"device memory above the scene {peak:.3f} GB, image mean "
+            f"{img.mean().item():.6f}")
+        check_launches(launches, bdpt_launches(opts, near, occ))
+        if not bool(torch.isfinite(img).all()) or \
+                tuple(img.shape) != (cam.height, cam.width, 3):
+            raise AssertionError(f"bdpt {key}: bad image")
+        wall1, busy, top = device_share(lambda: bdpt.render(scene, cam, one,
+                                                            0))
+        log(f"  one wavefront under the profiler: wall {wall1:.3f} s, device "
+            f"busy {busy:.3f} s ({busy / wall1 * 100:.1f} %); most device "
+            "time: " + "; ".join(f"{k} {t:.3f} s x{c}" for k, t, c in top))
+        del scene, cam, img
+    return errs
+
+
+# ------------------------------------------------------------------ phase 18
+
+def phase_bdpt_golden(dev):
+    """render_config of golden/mesh_bdpt_128.txt (18,244 faces, BDPT
+    through K5/K6) at 128x128 x 64 spp, 16 a wavefront, oracle quirks,
+    seeds 9 and 23, against the reference renderer's image with
+    tests/test_golden.py's compare and its bars for this config."""
+    from tuturenderer_tpu_torch.io.ppm import read_ppm
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.render import render_config
+    log("== phase 18: render_config of golden/mesh_bdpt_128.txt at 128x128 "
+        "x 64 spp (samples_per_launch 16, oracle quirk profile) against "
+        "golden/mesh_bdpt_128_ref.ppm")
+    opts = RenderOptions(spp=64, samples_per_launch=16, **ORACLE)
+    golden = read_ppm(root_path("golden", "mesh_bdpt_128_ref.ppm"))
+    for seed in GOLDEN_SEEDS:
+        img, wall, launches = timed(lambda: render_config(
+            root_path("golden", "mesh_bdpt_128.txt"), opts, seed=seed,
+            verbose=False, device=dev))
+        log(f"mesh_bdpt_128.txt seed {seed}: wall={wall:.3f} s")
+        check_launches(launches, bdpt_launches(opts, "cluster_nearest",
+                                               "cluster_anyhit"))
+        if img.shape != golden.shape or not np.isfinite(img).all():
+            raise AssertionError(f"mesh_bdpt_128: image {img.shape}")
+        ours = quantize(img)
+        blk = np.abs(block_mean(golden, 8) - block_mean(ours, 8)).max()
+        log(f"  against golden/mesh_bdpt_128_ref.ppm: max 8x8 block diff "
+            f"{blk:.5f} (bar 0.1), mean abs diff "
+            f"{np.abs(golden - ours).mean():.5f} (bar 0.04), mean diff "
+            f"{abs(golden.mean() - ours.mean()):.5f} (bar 0.012); image "
+            f"mean {img.mean():.6f}")
+        compare(golden, ours, 8, 0.1, 0.04, 0.012)
+
+
+# ------------------------------------------------------------------ phase 19
+
+def phase_bdpt_references(dev):
+    log("== phase 19: BDPT renders against the stored JAX renders")
+    for name in ("bdpt-box", "bdpt-showcase", "bdpt-showcase-quirks-off",
+                 "bdpt-showcase-7"):
+        against_integrator_reference(name, dev)
+
+
+# ------------------------------------------------------------------ phase 20
+
+def train_phase(name: str, renderer: str, make, spps, want):
+    """Forward and backward of mean(``renderer``) at each spp of ``spps``
+    (launches held to ``want(spp)``), the peak memory at each, which must
+    not grow with spp, and a central finite difference of the red wall's
+    diffuse red channel (material 1, leaf 0) at the largest. Returns the
+    scene and camera."""
+    from tuturenderer_tpu_torch.options import RenderOptions
+    scene, cam = make()
+    peaks = {}
+    for spp in spps:
+        opts = RenderOptions(spp=spp)
+        img, grads, wall, launches, peak, before = fwd_bwd(
+            scene, cam, opts, renderer=renderer)
+        check_launches(launches, want(spp))
+        peaks[spp] = (peak - before) / 1e9
+        log(f"{name} x {spp} spp: forward+backward wall={wall:.3f} s, "
+            f"{cam.n_pixels * spp / wall / 1e6:.3f} Mpaths/s, peak device "
+            f"memory above the scene {peaks[spp]:.3f} GB, image mean "
+            f"{img.mean().item():.6f}")
+    if peaks[spps[-1]] > 1.5 * peaks[spps[0]]:
+        raise AssertionError(f"{name}: peak memory grows with spp")
+    fd_check(name, scene, cam, opts, 1, 0, 1, float(grads[0][1]),
+             renderer=renderer)
+    return scene, cam
+
+
+def phase_bdpt_train(dev) -> dict:
+    """The light tracer's and BDPT's gradients, and K1/K2 against their
+    plain versions on one forward sample of render_bdpt_diff. Returns the
+    kernels' max abs errors."""
+    from tuturenderer_tpu_torch import grad
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    # warm-up at a small size (lazy module loads); not counted
+    for renderer in ("render_light_diff", "render_bdpt_diff"):
+        fwd_bwd(*simple_box(32, 32, device=dev), RenderOptions(spp=1),
+                renderer=renderer)
+    log("== phase 20: forward+backward of mean(render_light_diff("
+        "simple_box(1024, 1024))) at 2 and 8 spp and of mean("
+        "render_bdpt_diff(simple_box(512, 512))) at 1 and 4 spp (K1/K2; "
+        "the backward pass replays each sample once), then the card's "
+        "gradients against the stored JAX gradients")
+    train_phase("render_light_diff simple_box 1024^2", "render_light_diff",
+                lambda: simple_box(1024, 1024, device=dev), (2, 8),
+                lambda spp: {"nearest": 2 * spp, "anyhit": 4 * spp})
+    scene, cam = train_phase(
+        "render_bdpt_diff simple_box 512^2", "render_bdpt_diff",
+        lambda: simple_box(512, 512, device=dev), (1, 4),
+        lambda spp: {"nearest": 26 * spp, "anyhit": 2 * spp})
+    one = RenderOptions(spp=1)
+    errs = bdpt_errs("render_bdpt_diff simple_box 512^2", one,
+                     ("tri_intersect", "tri_occluded"),
+                     lambda: grad.render_bdpt_diff(grad.get_params(scene),
+                                                   scene, cam, one, 1))
+    for name in ("lt-diffuse", "bdpt-diffuse"):
+        against_grad_reference(name, dev)
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1800,7 +2041,17 @@ def main() -> int:
         merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
         merge_errs(cl_errs, {k: v for k, v in new_errs.items()
                              if k not in errs})
-    log(f"phases 14-16: {time.perf_counter() - t_new:.1f} s; the whole "
+    t_bdpt = time.perf_counter()
+    log(f"phases 14-16: {t_bdpt - t_new:.1f} s")
+    # phases 17-20: BDPT and the light tracer's and BDPT's gradients; K1/K2
+    # and K5/K6 held to their plain versions on BDPT's inputs too
+    new_errs = phase_bdpt(dev)
+    merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
+    merge_errs(cl_errs, {k: v for k, v in new_errs.items() if k not in errs})
+    phase_bdpt_golden(dev)
+    phase_bdpt_references(dev)
+    merge_errs(errs, phase_bdpt_train(dev))
+    log(f"phases 17-20: {time.perf_counter() - t_bdpt:.1f} s; the whole "
         f"script: {time.perf_counter() - t_start:.1f} s")
     # K1/K2 launches from the simple_box render, K3/K4 from the dense
     # training path's forward+backward; times and bounds at simple_box's

@@ -10,7 +10,15 @@ wavefront compaction of the PyTorch port are held to
   route: its XLA BVH);
 - compact_mis / compact_overflow: the MIS path tracer on simple_box at
   80x64 under compaction=(1.0, 0.5) (no overflow) and (1.0, 0.25)
-  (the overflow roulette engages), with the overflow count.
+  (the overflow roulette engages), with the overflow count;
+- bdpt_box / bdpt_showcase: BDPT on simple_box at bdpt_max_path_length 3
+  (its dense Pallas kernels in interpret mode) and on
+  sphere_showcase(nu=46, nv=46) at 5 (the JAX package's CPU route), at
+  24x20;
+- bdpt_showcase_quirks_off: the showcase case with
+  tutu_bdpt_weight_kill=False and tutu_bdpt_t1_gate=False;
+- bdpt_showcase_7: the showcase case at the default bdpt_max_path_length
+  7, the length of every BDPT path on the card (~50 s of JAX compile).
 
 Each file also stores, under ``case``, how its render was made (JSON: the
 integrator, the scene preset, the size, the RenderOptions fields and the
@@ -19,7 +27,8 @@ seed), so that chip_smoke.py renders the same case from the file alone.
     JAX_PLATFORMS=cpu python tests/data/make_torch_integrator_refs.py
 
 tests/test_torch_light_render.py, test_torch_naive.py,
-test_torch_compaction_jax.py and test_torch_compaction_roomy.py check that
+test_torch_compaction_jax.py, test_torch_compaction_roomy.py and
+test_torch_bdpt_{box,showcase,quirks,showcase7}.py check that
 each stored render equals a fresh JAX render, and chip_smoke.py holds the
 port's GPU renders against them.
 """

@@ -387,6 +387,22 @@ def test_test_count_is_rays_times_real_rows(soup):
     assert int(count) == N_RAYS * N_TRIS
 
 
+def test_occluded_plain_counts_only_live_rays(soup):
+    # a shadow call's dead lanes carry dist <= 0 (or NaN): never blocked,
+    # never tested
+    _, scene, o, d = soup
+    dist = torch.full((N_RAYS,), 100.0)
+    dist[0::4], dist[1::4], dist[2::4] = 0.0, -1.0, float("nan")
+    count = torch.zeros(1, dtype=torch.int64)
+    blocked = K.cluster_occluded(scene.clusters, *_cols(o), *_cols(d), dist,
+                                 test_count=count)
+    live = dist > 0.0
+    assert int(count) == int(live.sum()) * N_TRIS
+    assert not blocked[~live].any()
+    assert torch.equal(blocked[live], K.cluster_occluded(
+        scene.clusters, *(c[live] for c in _cols(o) + _cols(d)), dist[live]))
+
+
 def _good_args(soup):
     _, scene, o, d = soup
     return scene.clusters, _cols(o) + _cols(d)

@@ -280,18 +280,26 @@ def test_obj_loader_matches_jax(tmp_path):
 # ------------------------------------------------------------- render.py
 
 def test_render_image_refuses_an_unknown_integrator():
-    """(bdpt and postprocess: tests/test_torch_path.py
-    test_unported_options_raise)"""
+    """(postprocess: tests/test_torch_path.py test_unported_options_raise)"""
     scene, cam = simple_box(8, 6, device="cpu")
     with pytest.raises(ValueError, match="unknown integrator 'whitted'"):
         render_image(scene, cam, RenderOptions(spp=1), integrator="whitted")
 
 
 def test_render_config_of_a_bdpt_config_raises(tmp_path):
-    path = _write(tmp_path, _HEAD + "integrator bdpt\n")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        render_config(path, RenderOptions(spp=1), verbose=False,
-                      device="cpu")
+    """A config with ``integrator bdpt`` no longer raises (ROADMAP item
+    12b landed): render_config renders it with integrators/bdpt.py."""
+    from tuturenderer_tpu_torch.integrators.bdpt import render as bdpt
+    from tuturenderer_tpu_torch.scene.config import parse_config
+    path = _write(tmp_path, _HEAD + "integrator bdpt\nmtlcolor 0.5 0.4 0.3 "
+                  "1 1 1 0.7 1.3\nv -1 -1 0\nv 1 -1 0\nv 0 1 0\nf 1 2 3\n")
+    opts = RenderOptions(spp=1, bdpt_max_path_length=2)
+    img = render_config(path, opts, seed=2, verbose=False, device="cpu")
+    pc = parse_config(path)
+    assert pc.integrator == "bdpt"
+    want = bdpt(pc.builder.build(device="cpu"), pc.camera(device="cpu"),
+                opts, 2).numpy()
+    np.testing.assert_array_equal(img, want)
 
 
 def test_config_entry_point_imports_no_jax():

@@ -30,7 +30,8 @@ import pytest
 import torch
 
 from torch_port_util import (GRAD_CASES, GRAD_LEAVES, GRAD_REFS, GRAD_SEED,
-                             flatten, jax_grad_case, jax_grad_scene)
+                             check_stored, flatten, grad_case, jax_grad_case,
+                             jax_grad_scene)
 from tuturenderer_tpu.grad import get_params as j_get_params
 from tuturenderer_tpu_torch import grad as G
 from tuturenderer_tpu_torch.camera import camera_from_numpy, make_camera
@@ -100,7 +101,8 @@ def _fd(scene, cam, opts, seed, leaf, idx, eps):
 
 # ------------------------------------------------ against the JAX package
 
-@pytest.fixture(scope="module", params=sorted(GRAD_CASES))
+@pytest.fixture(scope="module", params=sorted(
+    n for n, case in GRAD_CASES.items() if case[2] == "render_diff"))
 def jax_case(request):
     return request.param, jax_grad_case(request.param)
 
@@ -126,14 +128,11 @@ def test_image_and_gradients_match_jax(jax_case):
 
 
 def test_stored_gradient_reference_is_the_jax_computation(jax_case):
-    """chip_smoke.py holds the card's gradients to these files; they must
-    be what the JAX package computes now."""
+    """chip_smoke.py holds the card's gradients to these files, computed as
+    each file's ``case`` says; they must be what the JAX package computes
+    now."""
     name, want = jax_case
-    stored = np.load(GRAD_REFS[name])
-    assert sorted(stored.files) == sorted(want)
-    for k in want:
-        np.testing.assert_allclose(stored[k], want[k], rtol=1e-6, atol=0,
-                                   err_msg=k)
+    check_stored(GRAD_REFS[name], want, grad_case(name), rtol=1e-6)
 
 
 def test_params_from_numpy_takes_jax_params():
@@ -308,10 +307,19 @@ def test_image_loss_and_grad_is_the_loss_gradient():
 
 
 def test_unported_differentiable_integrators_raise():
-    for fn in (G.render_light_diff, G.render_bdpt_diff):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 12"):
-            fn()
+    """The light tracer's and BDPT's differentiable renderers (ROADMAP item
+    12b) are served now: each gives a finite image and a gradient
+    (against the JAX package: tests/test_torch_bdpt_grad*.py)."""
+    scene, cam = _port_case("diffuse-mis")
+    for fn, opts in ((G.render_light_diff, RenderOptions(spp=1)),
+                     (G.render_bdpt_diff,
+                      RenderOptions(spp=1, bdpt_max_path_length=2))):
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in G.get_params(scene).leaves()]
+        img = fn(G.MaterialParams.from_leaves(leaves), scene, cam, opts, 1)
+        g, = torch.autograd.grad(img.mean(), leaves[3])
+        assert bool(torch.isfinite(img).all())
+        assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad():

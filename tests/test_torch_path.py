@@ -30,10 +30,12 @@ import torch
 
 from torch_port_util import (MESH_CASES, MESH_REFS, REF_PATH, REF_SEED,
                              REF_SIZE, REF_SPP, SHOWCASE_NU, SHOWCASE_NV,
-                             flatten, jax_dense_pallas_interpret,
+                             check_stored, flatten,
+                             jax_dense_pallas_interpret,
                              jax_mesh_render, jax_mesh_scene,
                              jax_reference_render, jax_route,
                              translucent_showcase)
+from torch_port_util import mesh_case as mesh_case_json
 from tuturenderer_tpu.camera import primary_ray as j_primary_ray
 from tuturenderer_tpu.integrators.path import trace_rays as j_trace_rays
 from tuturenderer_tpu.options import RenderOptions as JOptions
@@ -124,16 +126,22 @@ def test_samples_per_launch_and_sample_base_keep_the_stream(port_box):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(integrator="bdpt"), "12b"), (dict(postprocess=True), "13b")],
+    (dict(integrator="bdpt"), None), (dict(postprocess=True), "13b")],
     ids=["bdpt", "postprocess"])
 def test_unported_options_raise(port_box, kwargs, item):
-    """What the port does not serve yet raises, naming its ROADMAP item.
-    Compaction, the last option the path tracer refused, is served now
+    """What the port does not serve yet raises, naming its ROADMAP item:
+    ``postprocess`` (13b). The bdpt integrator (item 12b) is served now
+    and renders (tests/test_torch_bdpt*.py); so is compaction
     (tests/test_torch_compaction*.py)."""
     scene, cam = port_box
+    opts = RenderOptions(spp=1, bdpt_max_path_length=2)
+    if item is None:
+        img = render_image(scene, cam, opts, **kwargs)
+        assert img.shape == (H, W, 3) and np.isfinite(img).all()
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 item {item}"):
-        render_image(scene, cam, RenderOptions(spp=1), **kwargs)
+        render_image(scene, cam, opts, **kwargs)
 
 
 # ------------------------------------------------ the mesh-scale slice
@@ -200,9 +208,10 @@ def test_mesh_trace_rays_per_lane_matches_jax(mesh_case):
 
 
 def test_stored_mesh_reference_is_the_jax_render(mesh_case):
-    """chip_smoke.py holds the card's mesh-scale renders against these."""
+    """chip_smoke.py renders each stored case as its file says and holds
+    the card's render against the image."""
     name, img = mesh_case[:2]
-    np.testing.assert_array_equal(np.load(MESH_REFS[name]), img)
+    check_stored(MESH_REFS[name], {"image": img}, mesh_case_json(name))
 
 
 def test_translucent_shadows_are_lighter():

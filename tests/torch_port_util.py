@@ -10,23 +10,26 @@
 - ``REF_*`` say how ``tests/data/torch_simple_box_jax_ref.npy`` is made;
 - ``MESH_CASES`` name the renders the mesh-scale slice is held to, and
   ``MESH_REFS`` where each is stored under ``tests/data/``
-  (``make_torch_mesh_refs.py``); ``chip_smoke.py`` holds the card's renders
-  against them;
+  (``make_torch_mesh_refs.py``: the image and ``mesh_case``, how it was
+  rendered, in one ``.npz``); ``chip_smoke.py`` renders each case as its
+  file says and holds the card's render against it;
 - ``translucent_showcase`` builds sphere_showcase's geometry with the
   sphere's material at alpha 0.5 with either package's builder (the JAX
   package has no such preset);
 - ``GRAD_CASES`` name the differentiable renders the port's gradients are
-  held to, ``GRAD_REFS`` where each is stored (``make_torch_grad_refs.py``:
-  the scene, camera, image and gradient leaves in one ``.npz``), and
-  ``jax_grad_case`` computes one with the JAX package;
-- ``INTEGRATOR_CASES`` name the light-tracing, naive path-tracing and
-  compaction renders held to stored JAX renders, ``INTEGRATOR_REFS``
+  held to (the path tracer's ``render_diff``, the light tracer's and
+  BDPT's), ``GRAD_REFS`` where each is stored (``make_torch_grad_refs.py``:
+  the scene, camera, image, gradient leaves and ``grad_case`` in one
+  ``.npz``), and ``jax_grad_case`` computes one with the JAX package;
+- ``INTEGRATOR_CASES`` name the light-tracing, naive path-tracing,
+  compaction and BDPT renders held to stored JAX renders, ``INTEGRATOR_REFS``
   where each is stored (``make_torch_integrator_refs.py``: the image,
   for a compacted render the overflow count, and ``integrator_case``, how
   it was rendered, in one ``.npz``), and
   ``jax_integrator_render`` renders one with the JAX package;
-  ``check_stored_reference`` and ``check_compacted_render`` hold a stored
-  render and the port's compacted render to a JAX render;
+  ``check_stored`` holds a stored file to a fresh JAX computation and the
+  case it names, and ``check_compacted_render`` the port's compacted
+  render to a JAX render;
 - ``golden_config`` copies a config of ``golden/`` into a directory with
   its texture paths pointed at this checkout's ``golden/tex/`` (the files
   name them by an absolute path, valid only where the repository was
@@ -129,8 +132,43 @@ MESH_CASES = {
     "box-alpha": ("box", {"alpha_shadows": True}),
 }
 MESH_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
-                                f"torch_{name.replace('-', '_')}_jax_ref.npy")
+                                f"torch_{name.replace('-', '_')}_jax_ref.npz")
              for name in MESH_CASES}
+# a scene kind of the cases -> (the preset that builds it, its keywords);
+# chip_smoke.py builds the scene a stored case names from these
+SCENES = {"box": ("simple_box", {}),
+          "showcase": ("sphere_showcase",
+                       {"nu": SHOWCASE_NU, "nv": SHOWCASE_NV}),
+          "translucent": ("translucent_showcase",
+                          {"nu": SHOWCASE_NU, "nv": SHOWCASE_NV})}
+
+
+def case_json(**case) -> np.ndarray:
+    """How a stored reference was made, as the JSON text its ``.npz``
+    stores under ``case`` (chip_smoke.py reads it from there)."""
+    return np.asarray(json.dumps(case, sort_keys=True))
+
+
+def mesh_case(name: str) -> np.ndarray:
+    """How a MESH_CASES entry is rendered: the path tracer, the preset and
+    its keywords, REF_SIZE, the RenderOptions fields and REF_SEED."""
+    kind, fields = MESH_CASES[name]
+    scene, kw = SCENES[kind]
+    return case_json(integrator="path", scene=scene, scene_kw=kw,
+                     size=list(REF_SIZE),
+                     options={"spp": REF_SPP, **fields}, seed=REF_SEED)
+
+
+def check_stored(path: str, out: dict, case: np.ndarray, rtol: float = 0):
+    """The stored ``.npz`` at ``path`` holds exactly ``out`` (within
+    ``rtol``) and ``case``."""
+    want = {**out, "case": case}
+    stored = np.load(path)
+    assert sorted(stored.files) == sorted(want)
+    assert str(stored["case"]) == str(case)
+    for key in out:
+        np.testing.assert_allclose(stored[key], want[key], rtol=rtol, atol=0,
+                                   err_msg=key)
 
 
 def translucent_showcase(pkg: str, width: int, height: int,
@@ -198,12 +236,19 @@ def jax_mesh_render(name: str, scene=None, cam=None) -> np.ndarray:
 
 
 # the differentiable renders: name -> (tests/test_grad.py scene, RenderOptions
-# fields); both at a 24x20 camera (test_grad.py's 32x32 puts pixel centres
-# on the quads' diagonals, where the two packages' roundings split a ray
-# between two triangles, or neither), seed 7, loss = the image mean
+# fields, the renderer of grad.py); all at a 24x20 camera (test_grad.py's
+# 32x32 puts pixel centres on the quads' diagonals, where the two packages'
+# roundings split a ray between two triangles, or neither), seed 7, loss =
+# the image mean; the light tracer's and BDPT's options are test_grad.py's
 GRAD_CASES = {
-    "diffuse-mis": ("diffuse_box", {"spp": 2, "max_depth": 3}),
-    "ggx-nee": ("ggx_box", {"spp": 4, "max_depth": 0, "mis": False}),
+    "diffuse-mis": ("diffuse_box", {"spp": 2, "max_depth": 3},
+                    "render_diff"),
+    "ggx-nee": ("ggx_box", {"spp": 4, "max_depth": 0, "mis": False},
+                "render_diff"),
+    "lt-diffuse": ("diffuse_box", {"spp": 8, "lt_max_depth": 3},
+                   "render_light_diff"),
+    "bdpt-diffuse": ("diffuse_box", {"spp": 4, "bdpt_max_path_length": 4},
+                     "render_bdpt_diff"),
 }
 GRAD_SEED = 7
 GRAD_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
@@ -225,24 +270,35 @@ def jax_grad_scene(name: str):
     return scene, cam
 
 
+def grad_case(name: str) -> np.ndarray:
+    """How a GRAD_CASES entry is computed (its ``.npz`` holds the scene and
+    camera tables too): the renderer of grad.py, the scene, the camera
+    size, the RenderOptions fields and GRAD_SEED."""
+    scene, fields, renderer = GRAD_CASES[name]
+    return case_json(renderer=renderer, scene=scene, size=list(REF_SIZE),
+                     options=fields, seed=GRAD_SEED)
+
+
 def jax_grad_case(name: str) -> dict:
     """{"scene.*", "camera.*", "image", "grad.<leaf>"} numpy arrays of a
-    GRAD_CASES entry: the JAX render_diff image and jax.grad of its mean,
-    one traced graph (the JAX package's CPU route: its XLA MT
+    GRAD_CASES entry: the JAX image of its renderer and jax.grad of its
+    mean, one traced graph (the JAX package's CPU route: its XLA MT
     intersection)."""
     import jax
     import jax.numpy as jnp
-    from tuturenderer_tpu.grad import get_params, render_diff
+    from tuturenderer_tpu import grad
     from tuturenderer_tpu.options import RenderOptions
     scene, cam = jax_grad_scene(name)
-    opts = RenderOptions(differentiable=True, **GRAD_CASES[name][1])
+    _, fields, renderer = GRAD_CASES[name]
+    opts = RenderOptions(differentiable=True, **fields)
+    run = getattr(grad, renderer)
 
     def loss(p):
-        img = render_diff(p, scene, cam, opts, seed=GRAD_SEED)
+        img = run(p, scene, cam, opts, seed=GRAD_SEED)
         return jnp.mean(img), img
 
     (_, img), grads = jax.value_and_grad(loss, has_aux=True)(
-        get_params(scene))
+        grad.get_params(scene))
     out = {f"scene.{k}": v for k, v in flatten(scene).items()}
     out.update({f"camera.{k}": v for k, v in flatten(cam).items()})
     out["image"] = np.asarray(img)
@@ -251,12 +307,21 @@ def jax_grad_case(name: str) -> dict:
     return out
 
 
-# the light tracer, the naive path tracer and compaction: name ->
+# the light tracer, the naive path tracer, compaction and BDPT: name ->
 # (integrator, scene, RenderOptions fields, (width, height)); REF_SPP spp
 # unless the fields say otherwise, seed REF_SEED. The showcase walks take
 # lt_max_depth 4: its light is out of view, so a 2-vertex naive walk
-# renders black. The compacted renders use an 80x64 frame, 5,120 lanes, so
-# a 0.25 width shrinks the wavefront (1,280 rounds up to 2,048 lanes); a
+# renders black. BDPT renders mostly at a bdpt_max_path_length below the
+# default 7: the JAX side compiles its 27 strategies for ~50 s on the
+# CPU (the showcase, on its CPU route) and its 14 dense kernel calls in
+# interpret mode for ~180 s. simple_box takes 3 (6 interpret-mode calls,
+# ~50 s), the showcase 5 (14 strategies, ~30 s), once with both BDPT quirks
+# off (an open scene, where the t=1 gate drops the splats of lanes whose
+# camera ray missed); one showcase case takes the default 7, the length
+# every BDPT path on the card runs at (its fresh JAX render has a test file
+# of its own).
+# The compacted renders use an 80x64 frame, 5,120 lanes, so a 0.25 width
+# shrinks the wavefront (1,280 rounds up to 2,048 lanes); a
 # square frame puts simple_box's pixel centres on its quads' diagonals,
 # where the two packages can split a camera ray differently, and one lane
 # more or less alive changes every survivor's overflow weight
@@ -269,6 +334,15 @@ INTEGRATOR_CASES = {
     "compact-mis": ("path", "box", {"compaction": (1.0, 0.5)}, COMPACT_SIZE),
     "compact-overflow": ("path", "box", {"compaction": (1.0, 0.25)},
                          COMPACT_SIZE),
+    "bdpt-box": ("bdpt", "box", {"bdpt_max_path_length": 3}, REF_SIZE),
+    "bdpt-showcase": ("bdpt", "showcase", {"bdpt_max_path_length": 5},
+                      REF_SIZE),
+    "bdpt-showcase-quirks-off": ("bdpt", "showcase",
+                                 {"bdpt_max_path_length": 5,
+                                  "tutu_bdpt_weight_kill": False,
+                                  "tutu_bdpt_t1_gate": False}, REF_SIZE),
+    "bdpt-showcase-7": ("bdpt", "showcase", {"bdpt_max_path_length": 7},
+                        REF_SIZE),
 }
 INTEGRATOR_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
                                       f"torch_{name.replace('-', '_')}"
@@ -293,7 +367,8 @@ def jax_integrator_render(name: str) -> dict:
     from tuturenderer_tpu.options import RenderOptions
     from tuturenderer_tpu.scene.presets import simple_box
     integrator, kind, _, size = INTEGRATOR_CASES[name]
-    module = {"path": "path", "light": "light", "naivept": "naive"}
+    module = {"path": "path", "light": "light", "naivept": "naive",
+              "bdpt": "bdpt"}
     run = il.import_module(
         f"tuturenderer_tpu.integrators.{module[integrator]}").render
     opts = RenderOptions(**integrator_fields(name))
@@ -324,27 +399,44 @@ def compact_port_box():
 
 def integrator_case(name: str) -> np.ndarray:
     """How an INTEGRATOR_CASES entry is rendered, as the JSON text its
-    ``.npz`` stores under ``case`` (chip_smoke.py reads it from there):
-    the integrator, the preset and its keywords, the image size, the
-    RenderOptions fields and the seed."""
+    ``.npz`` stores under ``case``: the integrator, the preset and its
+    keywords, the image size, the RenderOptions fields and the seed."""
     integrator, kind, _, size = INTEGRATOR_CASES[name]
-    scene = {"box": ("simple_box", {}),
-             "showcase": ("sphere_showcase",
-                          {"nu": SHOWCASE_NU, "nv": SHOWCASE_NV})}[kind]
-    return np.asarray(json.dumps({
-        "integrator": integrator, "scene": scene[0], "scene_kw": scene[1],
-        "size": list(size), "options": integrator_fields(name),
-        "seed": REF_SEED}, sort_keys=True))
+    scene, kw = SCENES[kind]
+    return case_json(integrator=integrator, scene=scene, scene_kw=kw,
+                     size=list(size), options=integrator_fields(name),
+                     seed=REF_SEED)
 
 
 def check_stored_reference(name: str, out: dict):
     """The stored ``.npz`` of an INTEGRATOR_CASES entry holds ``out`` and
     the entry's ``integrator_case``."""
-    want = {**out, "case": integrator_case(name)}
-    stored = np.load(INTEGRATOR_REFS[name])
-    assert sorted(stored.files) == sorted(want)
-    for key in want:
-        np.testing.assert_array_equal(stored[key], want[key])
+    check_stored(INTEGRATOR_REFS[name], out, integrator_case(name))
+
+
+def port_scene(kind: str, size=REF_SIZE):
+    """The port's (scene, camera) of a case's scene kind on the CPU:
+    simple_box from the tables JAX builds, the showcase from the port's
+    own builder (with cluster tables)."""
+    if kind == "showcase":
+        from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+        return sphere_showcase(*size, nu=SHOWCASE_NU, nv=SHOWCASE_NV,
+                               device="cpu")
+    from tuturenderer_tpu.scene.presets import simple_box
+    from tuturenderer_tpu_torch.camera import camera_from_numpy
+    from tuturenderer_tpu_torch.scene.data import scene_from_numpy
+    scene, cam = simple_box(*size)
+    return scene_from_numpy(flatten(scene), device="cpu"), \
+        camera_from_numpy(flatten(cam), device="cpu")
+
+
+def assert_at_bar(got: np.ndarray, want: np.ndarray):
+    """A port render against a JAX render: >= 99 % of pixels within rtol
+    1e-4 / atol 1e-5 on all three channels, the image mean within 0.5 %."""
+    assert got.shape == want.shape and np.isfinite(got).all()
+    close = np.isclose(got, want, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(got.mean() - want.mean()) <= 0.005 * abs(want.mean())
 
 
 def check_compacted_render(name: str, want: dict, scene, cam) -> int:

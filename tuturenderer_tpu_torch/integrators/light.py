@@ -154,6 +154,19 @@ def _slot(idx, p: int):
     return torch.where(idx >= 0, idx, p).long()
 
 
+def splat_film(film: torch.Tensor, splat_idx, splat_rgb) -> torch.Tensor:
+    """``film`` [p + 1, 3] plus every splat (pixel indices [n], -1 for
+    none, and Vec3 values) at its pixel; an off-film splat goes to the
+    spare slot ``p`` with its value zeroed, as the JAX package drops it."""
+    p = film.shape[0] - 1
+    for idx, rgb in zip(splat_idx, splat_rgb):
+        on = (idx >= 0)[:, None]
+        film = film.index_add(0, _slot(idx, p),
+                              torch.where(on, torch.stack(tuple(rgb), -1),
+                                          0.0))
+    return film
+
+
 def raster_check(scene, cam: Camera, opts: RenderOptions, seed=0):
     """CHECK_LT-equivalent debug pass (LightTracing.hpp:5, 28-93): trace a
     primary ray per pixel, project the hit point back through the camera's
@@ -222,8 +235,7 @@ def render(scene, cam: Camera, opts: RenderOptions, seed=0, sample_base=0,
                                "amax", include_self=True)
         dmask.index_fill_(0, dslot, True)
         # vertex-connection splats: addRGB accumulation (raw sums)
-        for idx, rgb in zip(idx_list[1:], rgb_list[1:]):
-            splat.index_add_(0, _slot(idx, p), stack(rgb))
+        splat = splat_film(splat, idx_list[1:], rgb_list[1:])
     hw = (cam.height, cam.width)
     splat = splat[:p].reshape(*hw, 3)
     direct = direct[:p].reshape(*hw, 3)

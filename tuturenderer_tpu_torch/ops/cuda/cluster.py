@@ -254,16 +254,21 @@ def cluster_intersect_plain(clusters, ox, oy, oz, dx, dy, dz,
 
 def cluster_occluded_plain(clusters, ox, oy, oz, dx, dy, dz, dist,
                            test_count=None):
-    """Plain PyTorch any hit within ``dist`` over [N, 512] row tiles."""
+    """Plain PyTorch any hit within ``dist`` over [N, 512] row tiles. A ray
+    with dist <= 0 (or NaN), as every dead lane of a shadow call has, is
+    never blocked (a hit needs 0 < t < dist) and is not tested."""
     rows, _ = real_rows(clusters)
     blocked = torch.zeros(ox.shape[0], dtype=torch.bool, device=ox.device)
-    rays = [c[:, None] for c in (ox, oy, oz, dx, dy, dz)]
-    d = dist[:, None]
+    live = torch.nonzero(dist > 0.0)[:, 0]
+    rays = [c[live, None] for c in (ox, oy, oz, dx, dy, dz)]
+    d = dist[live, None]
+    hit = torch.zeros(live.shape[0], dtype=torch.bool, device=ox.device)
     for lo in range(0, rows.shape[0], CHUNK):
         t, _, _, ok = _test_tile(rows[lo:lo + CHUNK], *rays)
         ok = ok & (t < d) & ((t - d).abs() >= PARALLEL_EPS)
-        blocked = blocked | ok.any(dim=1)
-    _count(test_count, ox.shape[0], rows.shape[0])
+        hit = hit | ok.any(dim=1)
+    blocked[live] = hit
+    _count(test_count, live.shape[0], rows.shape[0])
     return blocked
 
 

@@ -2,9 +2,13 @@
 ``tuturenderer_tpu/options.py`` so one options object means the same render
 in both packages. The fields are plain Python values.
 
-The path tracer (compaction included), the light tracer and the naive
-path tracer read these fields; the BDPT fields wait for the BDPT
-integrator (ROADMAP queue 1 item 12b).
+The path tracer (compaction included), the light tracer, the naive path
+tracer and BDPT read these fields; BDPT's are
+``bdpt_max_path_length``, the debug filters ``bdpt_s_filter``,
+``bdpt_t_filter`` and ``bdpt_unweighted``, and the quirks
+``tutu_bdpt_weight_kill`` and ``tutu_bdpt_t1_gate``.
+``integrators/bdpt.py`` reads ``MIN_DIVISOR`` from its own module globals,
+so a test can patch it there.
 """
 from __future__ import annotations
 

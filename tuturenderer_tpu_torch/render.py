@@ -2,12 +2,11 @@
 
 The port of ``tuturenderer_tpu/render.py``'s ``render_image`` and
 ``render_config``, the analogue of Renderer (Renderer.hpp:32-72): select
-the integrator (path / light / naivept, integrateType 0-2), run it on the
-scene's device, and hand back the linear framebuffer as numpy.
+the integrator (path / light / naivept / bdpt, integrateType 0-3), run it
+on the scene's device, and hand back the linear framebuffer as numpy.
 
-Not served yet, raising ``NotImplementedError`` with the ROADMAP queue 1
-item that brings it: the ``bdpt`` integrator (12b) and ``postprocess``
-(13b).
+Not served yet: ``postprocess`` (bloom and tone mapping) raises
+``NotImplementedError`` naming ROADMAP queue 1 item 13b.
 """
 from __future__ import annotations
 
@@ -31,8 +30,7 @@ def _integrator(name: str):
     elif name == "naivept":
         from .integrators.naive import render
     elif name == "bdpt":
-        raise NotImplementedError(
-            "the bdpt integrator comes with ROADMAP queue 1 item 12b")
+        from .integrators.bdpt import render
     else:
         raise ValueError(f"unknown integrator {name!r}")
     return render
