@@ -125,8 +125,38 @@ Phases, in order; any failure raises and the script exits non-zero:
     plain versions on one forward sample of render_bdpt_diff; then both
     against the stored JAX gradients (``tests/data/torch_grad_{lt,bdpt}_diffuse_
     jax_ref.npz``).
+21. the shell, ``cli.main`` called in this process as ``python -m
+    tuturenderer_tpu_torch`` would call it: ``golden/mft_128.txt``,
+    ``tex_128.txt`` (relocated) and ``mesh_bdpt_128.txt`` (BDPT through
+    K5/K6) at 128x128 x 64 spp, each PPM held to ``render_config``'s image
+    under the same options through the same write (within one 8-bit level,
+    equal on >= 99.9 %); ``--checkpoint`` at 32 spp, then resumed to 64 in
+    16-spp chunks, for each integrator on mft_128, held to the single-shot
+    ``render_image`` (rtol 2e-4, atol 2e-6); ``--estimator-grid``, each
+    pane against its own ``render_image``; ``--post`` against
+    tests/test_post.py's float64 ``ref_pipeline`` of the unprocessed render
+    (rtol 2e-4, atol 1e-6), its PPM against that pass's write;
+    ``--profile --trace-dir build/chip_smoke/trace``, the
+    trace holding records of each kernel the render launched; ``--invert``
+    on tests/test_cli.py's INVERT_CONFIG at 128x128, 40 steps, the loss
+    below 0.05 of its first;
+22. multi-GPU (``parallel/sharding.py``) in an NCCL group of world 1 in
+    this process: ``render_sharded`` of simple_box 1024^2 x 64 spp against
+    phase 4's render (rtol 2e-5, atol 2e-6, tests/test_sharding.py's bar),
+    ``render_light_sharded`` and ``render_bdpt_sharded`` at simple_box
+    1024^2 x 16 spp, ``render_sharded`` of sphere_showcase 512^2 x 16 (K5/
+    K6) and of the translucent showcase 256^2 x 4 under ``alpha_shadows``
+    (K7) against phases 7 and 17; K1/K2 and K5/K6 against their plain
+    versions on a sharded render's inputs; ``train_step_sharded`` at
+    simple_box 1024^2 x 8 spp and ``image_loss_and_grad_sharded`` at 2 spp
+    under the MT form (K3/K4) against ``grad.image_loss_and_grad`` (the
+    gradients within 1e-5 of each leaf's largest magnitude, the step equal
+    to w - lr g), the peak device memory the same at 2 and 8 spp; then two
+    spawned ranks on the one card in a gloo group (NCCL takes one rank a
+    device), simple_box 256^2 x 16 spp as tile 2 x sample 1 and tile 1 x
+    sample 2, each rank's image against the single-device render.
 
-Every render of phases 14-20 is timed and its kernel launches are held to
+Every render of phases 14-22 is timed and its kernel launches are held to
 the count its log line's formula gives. Their kernel comparisons run on the
 inputs the render gave the kernel (``tools/time_kernels.py``'s
 ``capture``, in one more render that is not timed, at the render's own
@@ -579,6 +609,7 @@ def phase_slice(dev):
         raise AssertionError(f"image shape {tuple(img.shape)}")
 
     report_render(scene, cam, opts, img, wall, dev)
+    KEPT["simple_box"] = img.cpu().numpy()
     return launches
 
 
@@ -1016,6 +1047,8 @@ def phase_mesh_slice(dev) -> dict:
             shadow: (opts.max_depth + 1) * opts.spp})
         report_render(scene, cam, opts, img, wall, dev)
         runs[key] = launches
+        if key != "terrain":
+            KEPT[key] = img.cpu().numpy()
         del scene, cam, img
     return runs
 
@@ -1899,6 +1932,7 @@ def phase_bdpt(dev) -> dict:
         if not bool(torch.isfinite(img).all()) or \
                 tuple(img.shape) != (cam.height, cam.width, 3):
             raise AssertionError(f"bdpt {key}: bad image")
+        KEPT[f"bdpt {key}"] = img.cpu().numpy()
         wall1, busy, top = device_share(lambda: bdpt.render(scene, cam, one,
                                                             0))
         log(f"  one wavefront under the profiler: wall {wall1:.3f} s, device "
@@ -2012,6 +2046,610 @@ def phase_bdpt_train(dev) -> dict:
     return errs
 
 
+# ------------------------------------------------------------------ phase 21
+
+SHELL_SPP = 64
+# tests/test_cli.py's INVERT_CONFIG at 128x128: a wall facing the camera
+# under a downward-facing area light
+INVERT_CONFIG = """\
+imsize 128 128
+eye 0 0 3
+viewdir 0 0 -1
+hfov 60
+updir 0 1 0
+bkgcolor 0 0 0 1.0
+integrator path
+
+mtlcolor 0.8 0.2 0.2 1 1 1 1.0 1.0
+v -2 -2 -1
+v 2 -2 -1
+v 0 2 -1
+f 1 2 3
+
+emission 8 8 8
+v -0.5 0.9 0.5
+v 0 0.9 -0.5
+v 0.5 0.9 0.5
+f 4 5 6
+"""
+
+
+def ref_gauss_weights():
+    """tests/test_post.py's transcription of Postprocessor.hpp:77-80 (the
+    sqrt(2*pi*sigma) quirk and the truncated E constant), float64."""
+    from tuturenderer_tpu_torch.post import KERNELSIZE, STDDEV
+    e = 2.7182818
+    start = int(-KERNELSIZE * 0.5)
+    xs = np.arange(start, start + KERNELSIZE, dtype=np.float64)
+    w = (1.0 / np.sqrt(2 * np.pi * STDDEV)) * e ** (
+        -(xs * xs) / (2 * STDDEV * STDDEV))
+    return xs.astype(int), w
+
+
+def ref_blur_once(img):
+    """tests/test_post.py's getGaussianBlurTexture (Postprocessor.hpp:
+    63-119): vertical then horizontal, clamp-to-edge, normalised."""
+    offs, w = ref_gauss_weights()
+    h, wd, _ = img.shape
+    out = np.zeros_like(img)
+    for i, off in enumerate(offs):
+        out += w[i] * img[np.clip(np.arange(h) + off, 0, h - 1), :, :]
+    out /= w.sum()
+    out2 = np.zeros_like(out)
+    for i, off in enumerate(offs):
+        out2 += w[i] * out[:, np.clip(np.arange(wd) + off, 0, wd - 1), :]
+    return out2 / w.sum()
+
+
+def ref_pipeline(img):
+    """tests/test_post.py::ref_pipeline: bloom of the emissive extract,
+    then the exposure tone map, in float64."""
+    from tuturenderer_tpu_torch.post import EXPOSURE, GAUSSIANLOOP, STRENGTH
+    norm = np.sqrt((img ** 2).sum(-1, keepdims=True))
+    mx = img.max(-1, keepdims=True)
+    em = np.where(norm > 3.0, img / np.maximum(mx, 1e-20) * STRENGTH, 0.0)
+    for _ in range(GAUSSIANLOOP + 1):
+        em = ref_blur_once(em)
+    return 1.0 - np.exp(-(img + em) * EXPOSURE)
+
+
+def run_cli(argv):
+    """(stdout and stderr text, wall s, kernel launches) of one in-process
+    ``cli.main(argv)`` call, the launch counts zeroed just before it."""
+    import io
+
+    from tuturenderer_tpu_torch.cli import main as cli_main
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text), contextlib.redirect_stderr(text):
+        _, wall, launches = timed(lambda: cli_main(argv))
+    return text.getvalue(), wall, launches
+
+
+def ppm_levels(path: str) -> np.ndarray:
+    from tuturenderer_tpu_torch.io.ppm import read_ppm
+    return np.rint(read_ppm(path) * 255.0).astype(np.int32)
+
+
+def same_write(name: str, got: np.ndarray, img: np.ndarray):
+    """8-bit ``got`` against ``img`` through the same write (clamp, gamma,
+    truncation): within one level everywhere and equal on >= 99.9 % of
+    the values (the card's splat ``index_add_`` is not deterministic)."""
+    from tuturenderer_tpu_torch.io.ppm import quantize
+    want = quantize(np.asarray(img)).astype(np.int32)
+    diff = np.abs(got - want)
+    equal = float((diff == 0).mean())
+    log(f"  {name}: 8-bit values equal {equal * 100:.3f} % (bar 99.9 %), "
+        f"max difference {int(diff.max())} level(s) (bar 1)")
+    if got.shape != want.shape or diff.max() > 1 or equal < 0.999:
+        raise AssertionError(f"{name}: written image disagrees")
+
+
+def path_render_launches(opts, dense: bool = True) -> dict:
+    """path_launches on a dense or cluster scene; the NEE-only estimator
+    (mis=False) has no epilogue, so one nearest hit less a wavefront."""
+    out = path_launches(opts, "nearest" if dense else "cluster_nearest",
+                        "anyhit" if dense else "cluster_anyhit")
+    if not opts.mis:
+        near = "nearest" if dense else "cluster_nearest"
+        out[near] -= opts.spp // max(1, opts.samples_per_launch)
+    return out
+
+
+def walk_launches(integrator: str, opts, samples: int) -> dict:
+    """Launches of ``samples`` light-tracing or naive-PT samples on a dense
+    scene: (max(lt_max_depth, 2) - 1) nearest hits each, and for the light
+    tracer max(lt_max_depth, 2) any hits."""
+    steps = max(opts.lt_max_depth, 2)
+    out = {"nearest": (steps - 1) * samples}
+    if integrator == "light":
+        out["anyhit"] = steps * samples
+    return out
+
+
+def integrator_launches(integrator: str, opts) -> dict:
+    """A dense scene's render of ``opts`` with ``integrator``."""
+    if integrator == "path":
+        return path_render_launches(opts)
+    if integrator == "bdpt":
+        return bdpt_launches(opts, "nearest", "anyhit")
+    return walk_launches(integrator, opts, opts.spp)
+
+
+def phase_cli(dev):
+    """The shell on the card: the CLI on the golden configs against
+    render_config, interrupted checkpoints of all four integrators, the
+    estimator grid, the post pass, the profiler trace and --invert."""
+    from tuturenderer_tpu_torch.cli import samples_per_launch
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.render import render_config
+    from tuturenderer_tpu_torch.scene.config import parse_config
+    log("== phase 21: the shell on the card: python -m "
+        "tuturenderer_tpu_torch (cli.main in this process) on golden/"
+        "mft_128.txt, tex_128.txt and mesh_bdpt_128.txt at 128x128 x "
+        f"{SHELL_SPP} spp ({samples_per_launch(SHELL_SPP, 128 * 128)} "
+        "samples a wavefront), "
+        "--checkpoint, --estimator-grid, --post, --profile --trace-dir and "
+        "--invert")
+    out_dir = root_path("build", "chip_smoke", "cli")
+    os.makedirs(out_dir, exist_ok=True)
+    opts = RenderOptions(spp=SHELL_SPP, samples_per_launch=samples_per_launch(
+        SHELL_SPP, 128 * 128))
+    configs = {"mft_128": golden_config("mft_128.txt", out_dir),
+               "tex_128": golden_config("tex_128.txt", out_dir),
+               "mesh_bdpt_128": root_path("golden", "mesh_bdpt_128.txt")}
+    for name, path in configs.items():
+        out = os.path.join(out_dir, f"{name}.ppm")
+        text, wall, launches = run_cli([path, "--spp", str(SHELL_SPP), "-o",
+                                        out])
+        bdpt = name == "mesh_bdpt_128"
+        log(f"cli {name}: wall={wall:.3f} s, "
+            f"{128 * 128 * SHELL_SPP / wall / 1e6:.3f} Mpaths/s; launches "
+            + ("(2 bdpt_max_path_length - 1) nearest and 1 any hit a "
+               "wavefront:" if bdpt else "(max_depth + 2) nearest and "
+               "(max_depth + 1) any hit a wavefront:"))
+        check_launches(launches, bdpt_launches(
+            opts, "cluster_nearest", "cluster_anyhit") if bdpt
+            else path_render_launches(opts))
+        if "Generating image successfully" not in text:
+            raise AssertionError(f"cli {name}: {text[-400:]}")
+        img = render_config(path, opts, seed=0, verbose=False, device=dev)
+        same_write(f"cli {name} against render_config", ppm_levels(out), img)
+
+    mft = configs["mft_128"]
+    pc = parse_config(mft)
+    scene, cam = pc.builder.build(device=dev), pc.camera(device=dev)
+    for part in (cli_checkpoints, cli_grid, cli_post):
+        part(dev, mft, scene, cam, opts, out_dir)
+    cli_trace(mft, out_dir)
+    cli_invert(out_dir)
+
+
+def cli_checkpoints(dev, mft: str, scene, cam, opts, out_dir: str):
+    """--checkpoint for each integrator: 32 spp, then resumed to 64 in
+    16-spp chunks, held to the single-shot render."""
+    import dataclasses
+
+    from tuturenderer_tpu_torch.render import render_image, render_progressive
+
+    resumed = dataclasses.replace(opts, spp=SHELL_SPP // 2,
+                                  samples_per_launch=16)
+    for integrator in ("path", "light", "naivept", "bdpt"):
+        ck = os.path.join(out_dir, f"checkpoint_{integrator}.npz")
+        if os.path.exists(ck):
+            os.remove(ck)
+        args = ["--chunk-spp", "16", "--checkpoint", ck, "--integrator",
+                integrator, "-o",
+                os.path.join(out_dir, f"ck_{integrator}.ppm")]
+        run_cli([mft, "--spp", str(SHELL_SPP // 2), *args])
+        if int(np.load(ck)["spp_done"]) != SHELL_SPP // 2:
+            raise AssertionError(f"{integrator}: checkpoint not at 32 spp")
+        text, wall, launches = run_cli([mft, "--spp", str(SHELL_SPP), *args])
+        if f"resumed at {SHELL_SPP // 2}/{SHELL_SPP} spp" not in text:
+            raise AssertionError(f"{integrator}: did not resume: {text}")
+        log(f"cli --checkpoint --integrator {integrator}: resumed at 32 of 64 "
+            f"spp, the second half in {wall:.3f} s; launches of its two "
+            "16-spp chunks:")
+        check_launches(launches, integrator_launches(integrator, resumed))
+        if int(np.load(ck)["spp_done"]) != SHELL_SPP:
+            raise AssertionError(f"{integrator}: checkpoint not at 64 spp")
+        prog = render_progressive(scene, cam, opts, integrator, seed=0,
+                                  chunk_spp=16, checkpoint_path=ck,
+                                  progress=False)
+        one = render_image(scene, cam, opts, integrator, seed=0)
+        err = float(np.max(np.abs(prog - one) / (2e-6 + 2e-4 * np.abs(one))))
+        log(f"  resumed film against the single-shot render_image: worst "
+            f"|diff| / (2e-6 + 2e-4 |want|) = {err:.4f} (bar 1)")
+        np.testing.assert_allclose(prog, one, rtol=2e-4, atol=2e-6,
+                                   err_msg=integrator)
+        same_write(f"  its PPM against the resumed film",
+                   ppm_levels(os.path.join(out_dir, f"ck_{integrator}.ppm")),
+                   prog)
+
+
+def cli_grid(dev, mft: str, scene, cam, opts, out_dir: str):
+    """--estimator-grid, each pane against its own render_image."""
+    import dataclasses
+
+    from tuturenderer_tpu_torch.render import render_image
+    out = os.path.join(out_dir, "grid.ppm")
+    _, wall, launches = run_cli([mft, "--spp", str(SHELL_SPP),
+                                 "--estimator-grid", "-o", out])
+    panes = (("naivept", opts), ("light", opts),
+             ("path", dataclasses.replace(opts, mis=False)),
+             ("path", dataclasses.replace(opts, mis=True)))
+    want = {}
+    for integrator, o in panes:
+        merge_launches(want, integrator_launches(integrator, o))
+    log(f"cli --estimator-grid: wall={wall:.3f} s; launches naive + light "
+        "+ NEE (no epilogue) + MIS panes:")
+    check_launches(launches, want)
+    grid = ppm_levels(out)
+    h, w = cam.height, cam.width
+    for i, (integrator, o) in enumerate(panes):
+        r, c = divmod(i, 2)
+        same_write(f"grid pane {i} ({integrator}, mis={o.mis}) against its "
+                   "render_image", grid[r * h:(r + 1) * h, c * w:(c + 1) * w],
+                   render_image(scene, cam, o, integrator, seed=0))
+
+
+def cli_post(dev, mft: str, scene, cam, opts, out_dir: str):
+    """--post against the float64 formula of the unprocessed render."""
+    from tuturenderer_tpu_torch.post import bloom_and_tonemap
+    from tuturenderer_tpu_torch.render import render_image
+    out = os.path.join(out_dir, "post.ppm")
+    run_cli([mft, "--spp", str(SHELL_SPP), "--post", "-o", out])
+    lin = render_image(scene, cam, opts, seed=0)
+    want = ref_pipeline(lin.astype(np.float64))
+    on_card = bloom_and_tonemap(torch.from_numpy(lin).to(dev)).cpu().numpy()
+    err = float(np.max(np.abs(on_card - want) / (1e-6 + 2e-4 * np.abs(want))))
+    log(f"post.bloom_and_tonemap on the card against test_post.py's float64 "
+        f"ref_pipeline of the unprocessed render: worst |diff| / (1e-6 + "
+        f"2e-4 |want|) = {err:.4f} (bar 1)")
+    np.testing.assert_allclose(on_card, want, rtol=2e-4, atol=1e-6)
+    same_write("cli --post against the post pass of the unprocessed render",
+               ppm_levels(out), on_card)
+
+
+def cli_trace(mft: str, out_dir: str):
+    """--profile --trace-dir: the phase table, M paths/s, and a trace with
+    records of every hand-written kernel the render launched."""
+    trace_dir = root_path("build", "chip_smoke", "trace")
+    text, wall, launches = run_cli([mft, "--spp", "4", "--profile",
+                                    "--trace-dir", trace_dir, "-o",
+                                    os.path.join(out_dir, "profile.ppm")])
+    for line in text.splitlines():
+        if "paths" in line or line.startswith("  "):
+            log(f"  {line.strip()}")
+    if "M paths/s" not in text or "scene build" not in text:
+        raise AssertionError(f"cli --profile: {text[-400:]}")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    kept = {k: sum(KERNEL_NAMES[k] in n for n in kernels)
+            for k, n_launched in launches.items() if n_launched}
+    log(f"cli --profile --trace-dir: {len(events)} trace events, "
+        f"{len(kernels)} kernel records; records of the hand-written kernels "
+        f"the render launched (kept / launched): "
+        f"{ {k: (kept[k], launches[k]) for k in kept} }")
+    if not kept or not all(kept.values()):
+        raise AssertionError("the trace lacks a launched kernel")
+
+
+def cli_invert(out_dir: str):
+    """--invert: 40 steps from a wrong albedo, the loss below 0.05 of its
+    first."""
+    true_cfg = os.path.join(out_dir, "invert_true.txt")
+    wrong_cfg = os.path.join(out_dir, "invert_wrong.txt")
+    with open(true_cfg, "w") as f:
+        f.write(INVERT_CONFIG)
+    with open(wrong_cfg, "w") as f:
+        f.write(INVERT_CONFIG.replace("mtlcolor 0.8 0.2 0.2",
+                                      "mtlcolor 0.2 0.6 0.7"))
+    args = ["--spp", "4", "--max-depth", "2"]
+    target = os.path.join(out_dir, "invert_target.ppm")
+    run_cli([true_cfg, *args, "-o", target])
+    text, wall, launches = run_cli([
+        wrong_cfg, *args, "--invert", target, "--invert-steps", "40",
+        "--invert-lr", "10.0", "-o", os.path.join(out_dir, "recovered.ppm")])
+    losses = [float(ln.split("loss")[1]) for ln in text.splitlines()
+              if ln.startswith("invert step")]
+    log(f"cli --invert at 128x128 x 4 spp, 40 steps: wall={wall:.3f} s "
+        f"(the final render included); losses at steps 0, 10, 20, 30, 39: "
+        f"{losses}; " + "; ".join(ln for ln in text.splitlines()
+                                  if "diffuse =" in ln))
+    # a step's forward and backward: (3 (max_depth + 1) + 2) nearest hits
+    # and 3 (max_depth + 1) any hits (phase 9's count); then one render
+    depth = 2 + 1
+    log("  launches 40 steps x (3 (max_depth + 1) + 2) nearest and "
+        "3 (max_depth + 1) any hit, + the final render's (max_depth + 2) "
+        "and (max_depth + 1):")
+    check_launches(launches, {"nearest": 40 * (3 * depth + 2) + depth + 1,
+                              "anyhit": 40 * 3 * depth + depth})
+    if len(losses) != 5 or not losses[-1] < 0.05 * losses[0]:
+        raise AssertionError(f"--invert: loss {losses}")
+
+
+def merge_launches(into: dict, more: dict):
+    for k, v in more.items():
+        into[k] = into.get(k, 0) + v
+
+
+# ------------------------------------------------------------------ phase 22
+
+# images of earlier phases that phase 22 holds the sharded renders to:
+# phase 4's simple_box, phase 7's sphere_showcase and translucent showcase,
+# phase 17's BDPT simple_box (host copies)
+KEPT: dict = {}
+GLOO_SIZE = (256, 256)
+GLOO_SPP = 16
+GLOO_MESHES = {"tile 2 x sample 1": (2, 1), "tile 1 x sample 2": (1, 2)}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def held_to(name: str, got, want, rtol: float = 2e-5, atol: float = 2e-6):
+    """A sharded image against the single-device one at
+    tests/test_sharding.py's bar."""
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+    err = float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+    log(f"  {name}: worst |diff| / ({atol:g} + {rtol:g} |want|) = {err:.4f} "
+        "(bar 1)")
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                               err_msg=name)
+
+
+def sharded_render(name: str, fn, cam, opts, want_launches: dict, formula):
+    """(image, wall) of one sharded render, its launches held to
+    ``want_launches`` and logged with ``formula``."""
+    img, wall, launches = timed(fn)
+    paths = cam.n_pixels * opts.spp
+    log(f"{name}: wall={wall:.3f} s, {paths / wall / 1e6:.3f} Mpaths/s; "
+        f"launches {formula}:")
+    check_launches(launches, want_launches)
+    if not bool(torch.isfinite(img).all()) or \
+            tuple(img.shape) != (cam.height, cam.width, 3):
+        raise AssertionError(f"{name}: bad image")
+    return img
+
+
+def gloo_rank(rank: int, port: int, out_dir: str):
+    """One of two ranks on the one card in a gloo group: simple_box
+    GLOO_SIZE x GLOO_SPP spp through render_sharded on each GLOO_MESHES
+    mesh; saves the images and each render's launches."""
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.parallel import distributed as D
+    from tuturenderer_tpu_torch.parallel.sharding import render_sharded
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    torch.cuda.set_device(0)
+    D.init_distributed(f"127.0.0.1:{port}", 2, rank)
+    out = {"backend": np.asarray(D.dist.get_backend())}
+    try:
+        scene, cam = simple_box(*GLOO_SIZE, device="cuda")
+        opts = RenderOptions(spp=GLOO_SPP)
+        for label, shape in GLOO_MESHES.items():
+            mesh = D.new_mesh(("tile", "sample"), shape)
+            img, wall, launches = timed(lambda: render_sharded(
+                scene, cam, opts, mesh, seed=0))
+            out[f"{label}/image"] = img.cpu().numpy()
+            out[f"{label}/wall"] = np.asarray(wall)
+            out[f"{label}/launches"] = np.asarray(
+                [launches["nearest"], launches["anyhit"]])
+    finally:
+        D.dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"gloo_rank{rank}.npz"), **out)
+
+
+def phase_gloo(dev):
+    """Two ranks on the one card through gloo (NCCL takes one rank a
+    device), each mesh held to the single-device render."""
+    import torch.multiprocessing as mp
+
+    from tuturenderer_tpu_torch.integrators.path import render
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    log(f"== phase 22.2: two ranks on the one card, a gloo group (spawned "
+        f"processes): render_sharded(simple_box{GLOO_SIZE}, "
+        f"RenderOptions(spp={GLOO_SPP})) as " + " and ".join(GLOO_MESHES))
+    out_dir = root_path("build", "chip_smoke", "gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(gloo_rank, args=(free_port(), out_dir),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=10):
+            if time.perf_counter() - t0 > 300:
+                raise TimeoutError("the gloo ranks still run after 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    log(f"  both ranks done in {time.perf_counter() - t0:.1f} s (process "
+        "start, CUDA init and kernel loads included)")
+    ranks = [np.load(os.path.join(out_dir, f"gloo_rank{r}.npz"))
+             for r in range(2)]
+    scene, cam = simple_box(*GLOO_SIZE, device=dev)
+    opts = RenderOptions(spp=GLOO_SPP)
+    want = render(scene, cam, opts, seed=0).cpu().numpy()
+    for label, (n_tile, n_sample) in GLOO_MESHES.items():
+        per_rank = GLOO_SPP // n_sample
+        for r, got in enumerate(ranks):
+            if str(got["backend"]) != "gloo":
+                raise AssertionError(f"rank {r}: backend {got['backend']}")
+            launches = got[f"{label}/launches"].tolist()
+            log(f"  {label}, rank {r}: wall={float(got[f'{label}/wall']):.3f}"
+                f" s; launches (max_depth + 2) and (max_depth + 1) x its "
+                f"{per_rank} samples: {launches}")
+            if launches != [(opts.max_depth + 2) * per_rank,
+                            (opts.max_depth + 1) * per_rank]:
+                raise AssertionError(f"{label} rank {r}: launches {launches}")
+            held_to(f"{label}, rank {r}, against render",
+                    got[f"{label}/image"], want)
+
+
+def phase_sharded(dev) -> dict:
+    """The sharded entry points in an NCCL group of world 1 in this
+    process, the kernels on a sharded render's inputs, then phase_gloo.
+    Returns the kernels' max abs errors."""
+    from tuturenderer_tpu_torch.grad import get_params, image_loss_and_grad
+    from tuturenderer_tpu_torch.integrators import light
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.options import RenderOptions
+    from tuturenderer_tpu_torch.parallel import distributed as D
+    from tuturenderer_tpu_torch.parallel import sharding as S
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.tools.time_kernels import at, capture
+    port = free_port()
+    log(f"== phase 22: multi-GPU entry points (parallel/sharding.py) in an "
+        f"NCCL group of world 1 (tcp://127.0.0.1:{port}), then two gloo "
+        "ranks on the card")
+    D.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    errs = {}
+    try:
+        if D.dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {D.dist.get_backend()}")
+        mesh = S.make_mesh()
+        log(f"mesh {mesh.shape}, rank coordinates {mesh.coords}")
+        scene, cam = simple_box(1024, 1024, device=dev)
+        opts = RenderOptions(spp=64)
+        img = sharded_render(
+            "render_sharded(simple_box(1024, 1024), RenderOptions(spp=64))",
+            lambda: S.render_sharded(scene, cam, opts, mesh, seed=0), cam,
+            opts, path_render_launches(opts),
+            "(max_depth + 2) nearest, (max_depth + 1) any hit a sample")
+        held_to("against phase 4's render", img, KEPT["simple_box"])
+        opts = RenderOptions(spp=16)
+        img = sharded_render(
+            "render_light_sharded(simple_box(1024, 1024), "
+            "RenderOptions(spp=16))",
+            lambda: S.render_light_sharded(scene, cam, opts, mesh, seed=0),
+            cam, opts, walk_launches("light", opts, opts.spp),
+            "(max(lt_max_depth, 2) - 1) nearest, max(lt_max_depth, 2) any hit "
+            "a sample")
+        held_to("against light.render", img,
+                light.render(scene, cam, opts, 0).cpu().numpy())
+        img = sharded_render(
+            "render_bdpt_sharded(simple_box(1024, 1024), "
+            "RenderOptions(spp=16))",
+            lambda: S.render_bdpt_sharded(scene, cam, opts, mesh, seed=0),
+            cam, opts, bdpt_launches(opts, "nearest", "anyhit"),
+            "(2 bdpt_max_path_length - 1) nearest, 1 any hit a sample")
+        held_to("against phase 17's bdpt.render", img,
+                KEPT["bdpt simple_box"])
+        # the kernels on the inputs a sharded render gives them
+        with capture(tri_intersect={"bounce 1": at(1)},
+                     tri_occluded={"NEE at bounce 1": at(1)}) as got:
+            S.render_sharded(scene, cam, RenderOptions(spp=1), mesh, seed=0)
+        merge_errs(errs, compare_captured("render_sharded simple_box", got))
+        del scene, cam, img
+
+        s_mesh, c_mesh = sphere_showcase(512, 512, device=dev)
+        img = sharded_render(
+            "render_sharded(sphere_showcase(512, 512), RenderOptions(spp=16))",
+            lambda: S.render_sharded(s_mesh, c_mesh, opts, mesh, seed=0),
+            c_mesh, opts, path_render_launches(opts, dense=False),
+            "(max_depth + 2) nearest, (max_depth + 1) any hit a sample")
+        held_to("against phase 7's render", img, KEPT["sphere_showcase"])
+        with capture(cluster_intersect={"bounce 1": at(1)},
+                     cluster_occluded={"NEE at bounce 1": at(1)}) as got:
+            S.render_sharded(s_mesh, c_mesh, RenderOptions(spp=1), mesh,
+                             seed=0)
+        merge_errs(errs, compare_captured("render_sharded sphere_showcase",
+                                          got))
+        del s_mesh, c_mesh, img
+        s_tr, c_tr = translucent_showcase(256, 256, device=dev)
+        o_tr = RenderOptions(spp=4, alpha_shadows=True)
+        img = sharded_render(
+            "render_sharded(translucent showcase(256, 256), "
+            "RenderOptions(spp=4, alpha_shadows=True))",
+            lambda: S.render_sharded(s_tr, c_tr, o_tr, mesh, seed=0), c_tr,
+            o_tr, path_launches(o_tr, "cluster_nearest", "cluster_transmit"),
+            "(max_depth + 2) nearest, (max_depth + 1) transmittance a sample")
+        held_to("against phase 7's render", img, KEPT["translucent"])
+        del s_tr, c_tr, img
+
+        log("train_step_sharded at simple_box(1024, 1024) x 8 spp and "
+            "image_loss_and_grad_sharded at 2 spp, Moller-Trumbore form "
+            "(K3/K4), against grad.image_loss_and_grad at the same seed")
+        with dense_kernel("mt"):
+            # warm-up at a small size (allocator, lazy loads); not counted
+            s_small, c_small = simple_box(64, 64, device=dev)
+            S.image_loss_and_grad_sharded(
+                get_params(s_small), torch.zeros((64, 64, 3), device=dev),
+                s_small, c_small, RenderOptions(spp=1), mesh)
+            scene, cam = simple_box(1024, 1024, device=dev)
+            params = get_params(scene)
+            target = torch.full((cam.height, cam.width, 3), 0.25, device=dev)
+            lr = 0.05
+            peaks = {}
+            for spp in (2, 8):
+                o = RenderOptions(spp=spp)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                if spp == 8:
+                    (new, loss), wall, launches = timed(
+                        lambda: S.train_step_sharded(params, target, scene,
+                                                     cam, o, mesh, lr=lr,
+                                                     seed=1))
+                else:
+                    (loss, g), wall, launches = timed(
+                        lambda: S.image_loss_and_grad_sharded(
+                            params, target, scene, cam, o, mesh, seed=1))
+                peaks[spp] = (torch.cuda.max_memory_allocated() - before) / 1e9
+                depth = o.max_depth + 1
+                step = "train_step_sharded" if spp == 8 else \
+                    "image_loss_and_grad_sharded"
+                log(f"  {step} at {spp} spp: wall={wall:.3f} s, "
+                    f"{cam.n_pixels * spp / wall / 1e6:.3f} Mpaths/s, peak "
+                    f"device memory above the scene {peaks[spp]:.3f} GB; "
+                    "launches (3 (max_depth + 1) + 2) and 3 (max_depth + 1) "
+                    "a sample:")
+                check_launches(launches, {"mt_nearest": (3 * depth + 2) * spp,
+                                          "mt_anyhit": 3 * depth * spp})
+                want_loss, want_g = image_loss_and_grad(params, target, scene,
+                                                        cam, o, seed=1)
+                log(f"  loss {float(loss):.8f} against image_loss_and_grad's "
+                    f"{float(want_loss):.8f}")
+                np.testing.assert_allclose(float(loss), float(want_loss),
+                                           rtol=1e-5)
+                if spp == 8:
+                    # one SGD step: w - lr * g of the single-device gradient
+                    for name, a, w, b in zip(GRAD_LEAVES, new.leaves(),
+                                             params.leaves(),
+                                             want_g.leaves()):
+                        np.testing.assert_allclose(
+                            a.cpu().numpy(), (w - lr * b).cpu().numpy(),
+                            rtol=1e-6, atol=lr * 1e-5 * float(b.abs().max()),
+                            err_msg=name)
+                    log("  the step equals w - lr * g of the single-device "
+                        "gradient")
+                    continue
+                worst = 0.0
+                for name, a, b in zip(GRAD_LEAVES, g.leaves(),
+                                      want_g.leaves()):
+                    scale = float(b.abs().max())
+                    diff = float((a - b).abs().max())
+                    worst = max(worst, diff / scale if scale else diff)
+                    if diff > 1e-5 * scale:
+                        raise AssertionError(f"gradient {name}: {diff} of "
+                                             f"{scale}")
+                log(f"  gradients within {worst:.2e} of each leaf's largest "
+                    "magnitude (bar 1e-5)")
+            if peaks[8] > 1.05 * peaks[2]:
+                raise AssertionError(f"peak memory grows with spp: {peaks}")
+            del scene, cam
+    finally:
+        D.dist.destroy_process_group()
+    phase_gloo(dev)
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2051,8 +2689,18 @@ def main() -> int:
     phase_bdpt_golden(dev)
     phase_bdpt_references(dev)
     merge_errs(errs, phase_bdpt_train(dev))
-    log(f"phases 17-20: {time.perf_counter() - t_bdpt:.1f} s; the whole "
-        f"script: {time.perf_counter() - t_start:.1f} s")
+    t_shell = time.perf_counter()
+    log(f"phases 17-20: {t_shell - t_bdpt:.1f} s")
+    # phases 21-22: the shell and the sharded entry points; K1/K2 and K5/K6
+    # held to their plain versions on a sharded render's inputs too
+    phase_cli(dev)
+    t_shard = time.perf_counter()
+    new_errs = phase_sharded(dev)
+    merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
+    merge_errs(cl_errs, {k: v for k, v in new_errs.items() if k not in errs})
+    log(f"phase 21: {t_shard - t_shell:.1f} s; phase 22: "
+        f"{time.perf_counter() - t_shard:.1f} s; the whole script: "
+        f"{time.perf_counter() - t_start:.1f} s")
     # K1/K2 launches from the simple_box render, K3/K4 from the dense
     # training path's forward+backward; times and bounds at simple_box's
     # 1,048,576 rays

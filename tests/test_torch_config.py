@@ -261,8 +261,11 @@ def test_obj_loader_matches_jax(tmp_path):
                  (got.uvs, want.uvs)):
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(a, b)
-    # prefer_native is accepted and ignored: the pure-Python parser
+    # the native loader, taken first, reads the parser's arrays, as the JAX
+    # package's load_obj does; prefer_native=False takes the parser
     np.testing.assert_array_equal(OBJ.load_obj(path).verts, got.verts)
+    np.testing.assert_array_equal(OBJ.load_obj(path).verts,
+                                  JOBJ.load_obj(path).verts)
     np.testing.assert_array_equal(
         OBJ.load_obj(path, prefer_native=False).normals, got.normals)
     for op in (("translate", 1.0, -2.0, 0.5), ("scale", 2.0, 0.5, 3.0),
@@ -280,7 +283,7 @@ def test_obj_loader_matches_jax(tmp_path):
 # ------------------------------------------------------------- render.py
 
 def test_render_image_refuses_an_unknown_integrator():
-    """(postprocess: tests/test_torch_path.py test_unported_options_raise)"""
+    """(postprocess: tests/test_torch_post.py)"""
     scene, cam = simple_box(8, 6, device="cpu")
     with pytest.raises(ValueError, match="unknown integrator 'whitted'"):
         render_image(scene, cam, RenderOptions(spp=1), integrator="whitted")

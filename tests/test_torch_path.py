@@ -125,23 +125,23 @@ def test_samples_per_launch_and_sample_base_keep_the_stream(port_box):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(integrator="bdpt"), None), (dict(postprocess=True), "13b")],
-    ids=["bdpt", "postprocess"])
-def test_unported_options_raise(port_box, kwargs, item):
-    """What the port does not serve yet raises, naming its ROADMAP item:
-    ``postprocess`` (13b). The bdpt integrator (item 12b) is served now
-    and renders (tests/test_torch_bdpt*.py); so is compaction
-    (tests/test_torch_compaction*.py)."""
+@pytest.mark.parametrize("kwargs", [dict(integrator="bdpt"),
+                                    dict(postprocess=True)],
+                         ids=["bdpt", "postprocess"])
+def test_unported_options_raise(port_box, kwargs):
+    """The options that raised, naming their ROADMAP item, until the
+    port served them, now render: the bdpt integrator (item 12b,
+    tests/test_torch_bdpt*.py) and ``postprocess`` (13b: bloom and tone
+    mapping of the linear render, tests/test_torch_post.py); so does
+    compaction (tests/test_torch_compaction*.py)."""
+    from tuturenderer_tpu_torch.post import bloom_and_tonemap
     scene, cam = port_box
     opts = RenderOptions(spp=1, bdpt_max_path_length=2)
-    if item is None:
-        img = render_image(scene, cam, opts, **kwargs)
-        assert img.shape == (H, W, 3) and np.isfinite(img).all()
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 item {item}"):
-        render_image(scene, cam, opts, **kwargs)
+    img = render_image(scene, cam, opts, **kwargs)
+    assert img.shape == (H, W, 3) and np.isfinite(img).all()
+    if kwargs.get("postprocess"):
+        np.testing.assert_array_equal(
+            img, bloom_and_tonemap(render_image(scene, cam, opts)).numpy())
 
 
 # ------------------------------------------------ the mesh-scale slice

@@ -645,3 +645,82 @@ def special_rays(verts):
     with np.errstate(all="ignore"):
         return (np.concatenate([o, ro]).astype(np.float32),
                 np.concatenate([d, rd]).astype(np.float32), n_values)
+
+
+# the shell: name -> what the JAX package computed; SHELL_REFS where each
+# is stored (``make_torch_shell_refs.py``: the arrays and ``case``, how
+# they were made, in one ``.npz``). "cli-ppm" is the JAX CLI's PPM of
+# tests/test_cli.py's CONFIG; "checkpoint-*" the checkpoint JAX's
+# render_progressive wrote after 2 of a stored render's REF_SPP samples
+# (the simple_box path render of REF_PATH and INTEGRATOR_REFS' "lt-box"),
+# whose resumption is held to that stored image; "grid" JAX's
+# estimator_grid of CONFIG. simple_box renders take the dense Pallas kernels
+# in interpret mode, as the stored renders they resume do.
+CLI_ARGS = ["--spp", "2", "--max-depth", "2"]
+SHELL_CASES = {
+    "cli-ppm": {"argv": CLI_ARGS},
+    "checkpoint-path": {"integrator": "path", "resumes": "simple_box_ref",
+                        "spp_done": 2, "chunk_spp": 2},
+    "checkpoint-light": {"integrator": "light", "resumes": "lt-box",
+                         "spp_done": 2, "chunk_spp": 2},
+    "grid": {"options": {"spp": 2, "max_depth": 2}, "seed": 0},
+}
+SHELL_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
+                                 f"torch_shell_{name.replace('-', '_')}"
+                                 "_jax_ref.npz")
+              for name in SHELL_CASES}
+
+
+def shell_case(name: str) -> np.ndarray:
+    """How a SHELL_CASES entry was made, as the JSON text its ``.npz``
+    stores under ``case``; a checkpoint's names the render it resumes,
+    its size, seed and RenderOptions fields."""
+    case = dict(SHELL_CASES[name])
+    if name.startswith("checkpoint"):
+        case.update(size=list(REF_SIZE), seed=REF_SEED,
+                    options={"spp": REF_SPP})
+    return case_json(**case)
+
+
+def resumed_image(name: str) -> np.ndarray:
+    """The stored JAX render a checkpoint case resumes to."""
+    resumes = SHELL_CASES[name]["resumes"]
+    if resumes == "simple_box_ref":
+        return np.load(REF_PATH)
+    return np.load(INTEGRATOR_REFS[resumes])["image"]
+
+
+def jax_shell_ref(name: str, directory: str) -> dict:
+    """The arrays of a SHELL_CASES entry, computed by the JAX package on
+    the CPU (files go under ``directory``)."""
+    import dataclasses as dc
+
+    from test_cli import CONFIG
+    from tuturenderer_tpu.options import RenderOptions
+    cfg = os.path.join(directory, "scene.txt")
+    with open(cfg, "w") as f:
+        f.write(CONFIG)
+    case = SHELL_CASES[name]
+    with jax_dense_pallas_interpret():
+        if name == "cli-ppm":
+            from tuturenderer_tpu.cli import main
+            from tuturenderer_tpu.io.ppm import read_ppm
+            out = os.path.join(directory, "cli.ppm")
+            main([cfg, *case["argv"], "-o", out])
+            return {"ppm": np.rint(read_ppm(out) * 255).astype(np.uint8)}
+        if name == "grid":
+            from tuturenderer_tpu.render import estimator_grid
+            from tuturenderer_tpu.scene.config import parse_config
+            pc = parse_config(cfg)
+            return {"image": np.asarray(estimator_grid(
+                pc.builder.build(), pc.camera(),
+                RenderOptions(**case["options"]), seed=case["seed"]))}
+        from tuturenderer_tpu.render import render_progressive
+        from tuturenderer_tpu.scene.presets import simple_box
+        scene, cam = simple_box(*REF_SIZE)
+        ck = os.path.join(directory, "ck.npz")
+        render_progressive(scene, cam, dc.replace(
+            RenderOptions(spp=REF_SPP), spp=case["spp_done"]),
+            case["integrator"], seed=REF_SEED, chunk_spp=case["chunk_spp"],
+            checkpoint_path=ck, progress=False)
+        return dict(np.load(ck))

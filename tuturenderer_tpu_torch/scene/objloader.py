@@ -9,9 +9,9 @@ are ignored like the reference entry points do: every mesh gets the
 material passed by the caller (PPMGenerator::loadObj,
 PPMGenerator.hpp:164-208).
 
-Only the pure-Python parser is ported; the JAX package's native C++
-loader (``native.py``) has no counterpart yet, so ``load_obj`` accepts
-``prefer_native`` and ignores it.
+``load_obj`` takes the native C++ loader (``native.py``, the shared
+``native/libtutuhost.so``) first, as the JAX package does, and the
+pure-Python parser where no native library can be had.
 """
 from __future__ import annotations
 
@@ -61,8 +61,14 @@ def _resolve(idx: int, n: int) -> int:
 
 
 def load_obj(path: str, prefer_native: bool = True) -> Mesh:
-    """The mesh of an OBJ file. ``prefer_native`` is accepted for the JAX
-    package's signature and ignored: this package has no native loader."""
+    """The mesh of an OBJ file: through the native loader when
+    ``prefer_native`` and a library can be had, else the Python parser.
+    A missing file raises FileNotFoundError either way."""
+    if prefer_native:
+        from ..native import obj_load
+        r = obj_load(path)
+        if r is not None:
+            return Mesh(*r)
     return _load_obj_py(path)
 
 
