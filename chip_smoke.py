@@ -25,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    first tile, never blocked, and mixed, by whole blocks), each timed
    there;
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
-   on the card, with the kernel launch counts of that run;
+   on the card, timed by ``utils/profiling.py``'s ``measure_render``, with
+   the kernel launch counts of that run;
 5. the render at the size of the stored JAX reference image
    (``tests/data/torch_simple_box_jax_ref.npy``) against that image;
 6. each cluster kernel, the three modes of the BVH walk of
@@ -154,7 +155,20 @@ Phases, in order; any failure raises and the script exits non-zero:
     to w - lr g), the peak device memory the same at 2 and 8 spp; then two
     spawned ranks on the one card in a gloo group (NCCL takes one rank a
     device), simple_box 256^2 x 16 spp as tile 2 x sample 1 and tile 1 x
-    sample 2, each rank's image against the single-device render.
+    sample 2, each rank's image against the single-device render;
+23. ``ops/intersect.py::intersect_scene`` (``shade_hit`` of
+    ``intersect_core``) on simple_box 1024^2's 1,048,576 primary rays
+    through K1, again through K3 under the MT form, and on
+    sphere_showcase 512^2's 262,144 through K5, one launch each, every
+    HitRecord field held to the same call routed through the kernels'
+    plain versions (t bit-equal, idx equal where t is unique: a differing
+    idx must be an exact t tie, both triangles accepting the ray at that
+    t; every other field bit-equal where idx is); the device time of
+    ``intersect_scene`` against ``intersect_core`` alone (``utils/
+    timing.py``), so the share of ``shade_hit``'s gathers is on record;
+    and phase 4's render under ``utils/profiling.py``: the
+    ``measure_render`` that timed it and ``rays_per_path`` at every lane
+    alive and at the live fractions measured there.
 
 Every render of phases 14-22 is timed and its kernel launches are held to
 the count its log line's formula gives. Their kernel comparisons run on the
@@ -586,6 +600,7 @@ def phase_slice(dev):
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
     from tuturenderer_tpu_torch.options import RenderOptions
     from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.utils.profiling import measure_render
     opts = RenderOptions(spp=64)
     scene, cam = simple_box(1024, 1024, device=dev)
     # warm-up at a small size (allocator, lazy module loads); not counted
@@ -595,10 +610,13 @@ def phase_slice(dev):
 
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    img = render(scene, cam, opts, seed=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # timed by utils/profiling.py's measure_render (the card synchronised
+    # at both edges); phase 23 prints its counters
+    out = []
+    stats = measure_render(lambda: out.append(render(scene, cam, opts,
+                                                     seed=0)),
+                           cam.width, cam.height, opts.spp, opts.max_depth)
+    img, wall = out[0], stats.wall_s
     launches = dict(LAUNCHES)
 
     per_sample = {"nearest": opts.max_depth + 2, "anyhit": opts.max_depth + 1}
@@ -608,8 +626,9 @@ def phase_slice(dev):
     if tuple(img.shape) != (1024, 1024, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
 
-    report_render(scene, cam, opts, img, wall, dev)
+    fracs = report_render(scene, cam, opts, img, wall, dev)
     KEPT["simple_box"] = img.cpu().numpy()
+    KEPT["simple_box stats"] = (stats, opts, fracs)
     return launches
 
 
@@ -630,7 +649,8 @@ def rays_per_path(scene, cam, opts, dev):
 
 
 def report_render(scene, cam, opts, img, wall: float, dev):
-    """Log wall time, image mean and rays/s of a render."""
+    """Log wall time, image mean and rays/s of a render; returns the live
+    fractions."""
     rpp, fracs = rays_per_path(scene, cam, opts, dev)
     primary = cam.n_pixels * opts.spp
     mean = img.mean().item()
@@ -639,6 +659,7 @@ def report_render(scene, cam, opts, img, wall: float, dev):
         f"total rays/s={primary * rpp / wall / 1e6:.2f} M  "
         f"(rays/path={rpp:.4f}, live fractions="
         f"{np.round(fracs, 4).tolist()})")
+    return fracs
 
 
 def check_launches(got: dict, want: dict):
@@ -2650,6 +2671,170 @@ def phase_sharded(dev) -> dict:
     return errs
 
 
+# ------------------------------------------------------------------ phase 23
+
+@contextlib.contextmanager
+def plain_route():
+    """``ops/intersect.py``'s nearest-hit kernel wrappers replaced by their
+    plain versions within the block (K1, K3 and K5's)."""
+    from tuturenderer_tpu_torch.ops import intersect as TI
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    plain = {"tri_intersect": K.tri_intersect_plain,
+             "tri_intersect_mt": K.tri_intersect_mt_plain,
+             "cluster_intersect": C.cluster_intersect_plain}
+    saved = {name: getattr(TI, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(TI, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(TI, name, fn)
+
+
+def tied(scene, form: str, rays, rec, plain) -> int:
+    """Where the two records' idx differ, both triangles must accept the
+    ray at the record's t, bit for bit, in the test of the route that
+    traced it (K1's Woop rows, K3's MT rows or the cluster rows): an exact
+    t tie. So idx is equal wherever t is unique. Returns the number of
+    such rays."""
+    from tuturenderer_tpu_torch.ops.cuda import cluster as C
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    diff = torch.nonzero(rec.idx != plain.idx)[:, 0]
+    if diff.numel() == 0:
+        return 0
+    ray = [c[diff] for c in rays]
+    if scene.clusters is not None:
+        rows, virt = C.real_rows(scene.clusters)
+        row_of = torch.empty(scene.n_tris, dtype=torch.int64,
+                             device=rows.device)
+        row_of[scene.clusters.tri_idx.reshape(-1)[virt].long()] = \
+            torch.arange(rows.shape[0], device=rows.device)
+        table, test = rows, C._test_tile
+    else:
+        f = dense_form(form)
+        table = f["pack"](scene).reshape(-1, f["floats"])
+        row_of, test = None, f["tile"]
+    for idx in (rec.idx[diff], plain.idx[diff]):
+        if bool((idx < 0).any()):
+            raise AssertionError("a hit against a miss where t is equal")
+        r = idx.long() if row_of is None else row_of[idx.long()]
+        # 1-D rays against one row each: the test pairs them elementwise
+        t, _, _, ok = test(table[r], *ray)
+        if not bool(ok.all()) or not torch.equal(t[0], rec.t[diff]):
+            raise AssertionError("idx differs where t is unique")
+    return int(diff.numel())
+
+
+def hold_record(name: str, scene, form: str, rays, rec, plain) -> float:
+    """``intersect_scene``'s record on the card against the plain route's:
+    t bit-equal, idx equal where t is unique (``tied``), every other field
+    bit-equal where idx is. Returns the max abs error over t and those
+    fields (0, or this raises)."""
+    torch.cuda.synchronize()
+    if not torch.equal(rec.t, plain.t):
+        raise AssertionError(f"{name}: t differs from the plain route")
+    n_tied = tied(scene, form, rays, rec, plain)
+    same = rec.idx == plain.idx
+    err = 0.0
+    for field in ("t", "hit", "pos", "ng", "ns", "u", "v", "mat", "kind",
+                  "area"):
+        got, want = getattr(rec, field), getattr(plain, field)
+        for g, w in zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))):
+            g, w = g[same], w[same]
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name}: {field} differs where idx "
+                                     "is equal")
+            if g.numel():
+                err = max(err, (g.double() - w.double()).abs().max().item())
+    log(f"  {name}: rays={rec.t.shape[0]} "
+        f"hit={rec.hit.float().mean().item():.4f} t bit-equal, idx differs "
+        f"on {n_tied} exact t ties, every field bit-equal where idx is "
+        f"(max abs error {err:.3g})")
+    return err
+
+
+def phase_intersect_scene(dev) -> dict:
+    """Phase 23: ``intersect_scene`` on the card, through K1 (and K3 under
+    the MT form) on simple_box's 1,048,576 primary rays and K5 on
+    sphere_showcase's 262,144, each held to the plain route on the same
+    rays and timed against ``intersect_core`` alone; then phase 4's
+    render's counters."""
+    log("== phase 23: intersect_scene (shade_hit of intersect_core) on the "
+        "card")
+    from tuturenderer_tpu_torch.camera import primary_ray
+    from tuturenderer_tpu_torch.models.scenes import sphere_showcase
+    from tuturenderer_tpu_torch.ops import intersect as TI
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.utils.profiling import rays_per_path
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    t_phase = time.perf_counter()
+    errs = {}
+    cases = (("simple_box 1024^2", lambda: simple_box(1024, 1024, device=dev),
+              "woop", "nearest"),
+             ("simple_box 1024^2, MT form", None, "mt", "mt_nearest"),
+             ("sphere_showcase 512^2", lambda: sphere_showcase(
+                 512, 512, device=dev), "woop", "cluster_nearest"))
+    for name, make, form, key in cases:
+        if make is not None:
+            t0 = time.perf_counter()
+            scene, cam = make()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            pix = torch.arange(cam.n_pixels, dtype=torch.int32, device=dev)
+            o, d, _ = primary_ray(cam, pix % cam.width, pix // cam.width)
+            rays = [c.contiguous() for c in (*o, *d)]
+            log(f"  {name}: {scene.n_tris} triangles, {scene.n_spheres} "
+                f"spheres, built in {build_s:.2f} s")
+        with dense_kernel(form):
+            for k in K.LAUNCHES:
+                K.LAUNCHES[k] = 0
+            rec = TI.intersect_scene(scene, o, d)
+            torch.cuda.synchronize()
+            check_launches(dict(K.LAUNCHES), {key: 1})
+            with plain_route():
+                plain = TI.intersect_scene(scene, o, d)
+            errs[key] = hold_record(name, scene, form, rays, rec, plain)
+            calls = {"intersect_scene": lambda: TI.intersect_scene(
+                         scene, o, d),
+                     "intersect_core": lambda: TI.intersect_core(
+                         scene, o, d)}
+            # a call launches a hundred kernels and more, and the launch
+            # queue holds about a thousand behind the spin: 3 calls a
+            # measurement, the median of 5
+            ms = {k: float(np.median([device_ms(fn, reps=3, warm=1)
+                                      for _ in range(5)]))
+                  for k, fn in calls.items()}
+            wall = {k: wall_ms(fn) for k, fn in calls.items()}
+        share = 1.0 - ms["intersect_core"] / ms["intersect_scene"]
+        log(f"  {name}: device ms intersect_scene={ms['intersect_scene']:.4f}"
+            f" intersect_core={ms['intersect_core']:.4f} (shade_hit "
+            f"{share * 100:.1f} % of intersect_scene); per call with launch "
+            f"overhead intersect_scene={wall['intersect_scene']:.4f} "
+            f"intersect_core={wall['intersect_core']:.4f}")
+        del rec, plain
+    # phase 4's render under utils/profiling.py's counters
+    stats, opts, fracs = KEPT["simple_box stats"]
+    bound = rays_per_path(opts.max_depth)
+    if bound != 2.0 * (opts.max_depth + 1) + 0.1:
+        raise AssertionError(f"rays_per_path({opts.max_depth}) = {bound}")
+    if stats.paths != 1024 * 1024 * opts.spp or \
+            stats.rays != stats.paths * bound:
+        raise AssertionError(f"measure_render counted {stats.paths} paths, "
+                             f"{stats.rays} rays")
+    rpp = rays_per_path(opts.max_depth, list(fracs[:-1]),
+                        epilogue=float(fracs[-1]))
+    log(f"  measure_render of phase 4's render: {stats}; "
+        f"rays_per_path({opts.max_depth}) = {bound:.4f} (all lanes alive), "
+        f"{rpp:.4f} at the measured live fractions: "
+        f"{stats.paths * rpp / stats.wall_s / 1e6:.2f} M rays/s")
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2699,8 +2884,13 @@ def main() -> int:
     merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
     merge_errs(cl_errs, {k: v for k, v in new_errs.items() if k not in errs})
     log(f"phase 21: {t_shard - t_shell:.1f} s; phase 22: "
-        f"{time.perf_counter() - t_shard:.1f} s; the whole script: "
-        f"{time.perf_counter() - t_start:.1f} s")
+        f"{time.perf_counter() - t_shard:.1f} s")
+    # phase 23: intersect_scene through K1, K3 and K5, held to the plain
+    # route on the same rays
+    new_errs = phase_intersect_scene(dev)
+    merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
+    merge_errs(cl_errs, {k: v for k, v in new_errs.items() if k not in errs})
+    log(f"the whole script: {time.perf_counter() - t_start:.1f} s")
     # K1/K2 launches from the simple_box render, K3/K4 from the dense
     # training path's forward+backward; times and bounds at simple_box's
     # 1,048,576 rays

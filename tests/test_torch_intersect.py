@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import flatten, jax_dense_pallas_interpret
+from torch_port_util import (flatten, jax_dense_pallas_interpret,
+                             unique_nearest)
 from tuturenderer_tpu.ops import intersect as JI
 from tuturenderer_tpu.ops.pallas.intersect import (pallas_tri_intersect,
                                                    pallas_tri_occluded)
@@ -79,15 +80,6 @@ def _tvec(a):
                   for i in range(3)])
 
 
-def _unique_t(table, o, d):
-    """Per ray: True where no two accepted triangles share the nearest t."""
-    rays = [torch.from_numpy(np.ascontiguousarray(a[:, i]))[:, None]
-            for a in (o, d) for i in range(3)]
-    t, _, _, ok = K._woop_tile(table.reshape(-1, 13), *rays)
-    t = torch.where(ok, t, K.F32_MAX)
-    return ((t == t.min(dim=1, keepdim=True).values).sum(dim=1) <= 1).numpy()
-
-
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
     jscene, o, d = CASES[request.param]()
@@ -108,7 +100,7 @@ def test_nearest_matches_pallas_interpret(case):
     assert hit.mean() > 0.3
     both = hit & jhit
     np.testing.assert_allclose(t[both], jt[both], rtol=1e-5)
-    uniq = both & _unique_t(table, o, d)
+    uniq = both & unique_nearest(table, o, d)
     np.testing.assert_array_equal(idx[uniq], jidx[uniq])
     np.testing.assert_allclose(bu[uniq], jbu[uniq], atol=1e-5)
     np.testing.assert_allclose(bv[uniq], jbv[uniq], atol=1e-5)
@@ -162,7 +154,7 @@ def test_intersect_core_and_shade_hit_match_jax(case):
     both = hit & jhit
     np.testing.assert_allclose(core.t.numpy()[both],
                                np.asarray(jcore.t)[both], rtol=1e-5)
-    uniq = both & _unique_t(K.pack_triangles_woop(scene), o, d)
+    uniq = both & unique_nearest(K.pack_triangles_woop(scene), o, d)
     for f in ("kind", "idx"):
         got = getattr(core, f).numpy()
         assert got.dtype == np.int32

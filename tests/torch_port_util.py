@@ -38,6 +38,12 @@
   in float32 numpy, as ``csrc/bvh_walk.cu`` walks it in each of its three
   modes, so the CPU tests check the tree where the kernel cannot run;
 - importing it sets one intra-op thread per process (see below);
+- ``MODEL_CASES`` name tests/test_models.py's small preset renders,
+  ``MODEL_REFS`` where each is stored (``make_torch_models_refs.py``: the
+  image and ``model_case`` in one ``.npz``), and ``jax_model_render``
+  renders one with the JAX package;
+- ``check_hit_records`` holds the port's ``intersect_scene`` to the JAX
+  package's on the same rays, field for field;
 - ``special_verts`` and ``special_rays`` make triangles and rays that reach
   the dense kernels' edge cases (in-plane rays, det = +-0, inf and NaN
   values, subnormal products, exact t ties), for the CPU tests against
@@ -724,3 +730,157 @@ def jax_shell_ref(name: str, directory: str) -> dict:
             case["integrator"], seed=REF_SEED, chunk_spp=case["chunk_spp"],
             checkpoint_path=ck, progress=False)
         return dict(np.load(ck))
+
+
+# tests/test_models.py's small presets: name -> (preset of models/scenes.py,
+# its keywords, (width, height), RenderOptions fields), the path tracer at
+# seed MODEL_SEED; both are dense scenes (288 and 516 triangles), which the
+# JAX package renders on its CPU route (XLA Moller-Trumbore)
+MODEL_CASES = {
+    "terrain": ("terrain", {"nx": 12, "nz": 12}, (24, 24),
+                {"spp": 2, "max_depth": 3}),
+    "showcase": ("sphere_showcase", {"nu": 16, "nv": 16}, (16, 16),
+                 {"spp": 2, "max_depth": 3}),
+}
+MODEL_SEED = 0
+MODEL_REFS = {name: os.path.join(os.path.dirname(__file__), "data",
+                                 f"torch_models_{name}_jax_ref.npz")
+              for name in MODEL_CASES}
+
+
+def model_case(name: str) -> np.ndarray:
+    """How a MODEL_CASES entry is rendered, as the JSON text its ``.npz``
+    stores under ``case``."""
+    scene, kw, size, fields = MODEL_CASES[name]
+    return case_json(integrator="path", scene=scene, scene_kw=kw,
+                     size=list(size), options=fields, seed=MODEL_SEED)
+
+
+def model_scene(pkg: str, name: str, **device):
+    """The (scene, camera) of a MODEL_CASES entry, built by the ``pkg``
+    package's preset (``device`` goes to the port's)."""
+    scene, kw, size, _ = MODEL_CASES[name]
+    preset = getattr(importlib.import_module(pkg + ".models.scenes"), scene)
+    return preset(*size, **kw, **device)
+
+
+def jax_model_render(name: str) -> np.ndarray:
+    """The JAX render of a MODEL_CASES entry, as MODEL_REFS stores it."""
+    from tuturenderer_tpu.integrators.path import render
+    from tuturenderer_tpu.options import RenderOptions
+    scene, cam = model_scene("tuturenderer_tpu", name)
+    opts = RenderOptions(**MODEL_CASES[name][3])
+    return np.asarray(render(scene, cam, opts, MODEL_SEED), np.float32)
+
+
+# a triangle hit whose barycentrics lie within KNIFE_EDGE of an edge is a
+# knife edge: the Woop and Moller-Trumbore tests, and XLA's and PyTorch's
+# roundings of one test, may put it on either side (ROADMAP queue 3 item 3)
+KNIFE_EDGE = 1e-5
+
+
+def _knife(core) -> np.ndarray:
+    """Per ray: a triangle hit within KNIFE_EDGE of an edge of its
+    triangle (numpy fields of a HitCore or HitRecord with bu/bv)."""
+    bu, bv = core["bu"], core["bv"]
+    edge = np.minimum(np.minimum(bu, bv), 1.0 - bu - bv)
+    return (core["idx"] >= 0) & (core["kind"] == 0) & (edge < KNIFE_EDGE)
+
+
+def unique_nearest(table, o: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """Per ray: True where no two triangles of a Woop table (the port's
+    ``pack_triangles_woop``) share the nearest accepted t, tested in
+    float32 as K1 tests them; True on a miss."""
+    from tuturenderer_tpu_torch.ops.cuda import intersect as K
+    rows = table.reshape(-1, K.TRI_FLOATS)
+    rays = [torch.from_numpy(np.ascontiguousarray(a[:, i]))[:, None]
+            for a in (o, d) for i in range(3)]
+    best = torch.full((o.shape[0],), K.F32_MAX)
+    count = torch.zeros(o.shape[0], dtype=torch.int64)
+    for lo in range(0, rows.shape[0], K.CHUNK):
+        t, _, _, ok = K._woop_tile(rows[lo:lo + K.CHUNK], *rays)
+        t = torch.where(ok, t, K.F32_MAX)
+        m = t.min(dim=1).values
+        n = (t == m[:, None]).sum(dim=1)
+        count = torch.where(m < best, n, torch.where(m == best, count + n,
+                                                     count))
+        best = torch.minimum(best, m)
+    return ((best >= K.F32_MAX) | (count <= 1)).numpy()
+
+
+def check_hit_records(scene, o: np.ndarray, d: np.ndarray, rec, jrec,
+                      t_tol=(1e-5, 1e-6)) -> dict:
+    """The port's HitRecord ``rec`` against the JAX package's ``jrec`` on
+    the same rays ``o``, ``d`` ([N, 3] float32) of the port scene
+    ``scene``:
+
+    - hit and miss agree on every ray but knife edges (``KNIFE_EDGE``);
+    - where both hit, t is unique (``unique_nearest``) and neither is a
+      knife edge: t within ``t_tol`` (rtol, atol; the Woop and the
+      Moller-Trumbore t differ by an error that scales with the distance
+      to the triangle, not with t), kind, idx, mat and area equal, pos,
+      ng, ns, u and v within rtol 1e-5 / atol 1e-5 (sphere u/v go through
+      acos/atan2, whose float32 results differ between XLA and PyTorch by
+      a few ulps);
+    - where both miss: t F32_MAX, idx -1 and mat 0 on both sides.
+
+    Returns the counts of rays held (``held``), hits, knife edges and
+    rays whose t is not unique."""
+    from tuturenderer_tpu_torch.ops.cuda.intersect import (
+        F32_MAX, pack_triangles_woop)
+    got = {f: np.asarray(getattr(rec, f)) for f in ("t", "hit", "kind",
+                                                     "idx", "mat", "area",
+                                                     "u", "v")}
+    want = {f: np.asarray(getattr(jrec, f)) for f in got}
+    for f in ("kind", "idx", "mat"):
+        assert got[f].dtype == np.int32, f
+    assert got["hit"].dtype == np.bool_
+    # barycentrics of the winning triangle, from the hit point
+    for out, r in ((got, rec), (want, jrec)):
+        out["bu"], out["bv"] = _barycentrics(scene, out["idx"],
+                                             np.stack([np.asarray(c) for c
+                                                       in r.pos], -1))
+    knife = _knife(got) | _knife(want)
+    split = got["hit"] != want["hit"]
+    assert not (split & ~knife).any(), np.flatnonzero(split & ~knife)
+    unique = unique_nearest(pack_triangles_woop(scene), o, d)
+    both = got["hit"] & want["hit"]
+    held = both & ~knife & unique
+    np.testing.assert_allclose(got["t"][held], want["t"][held],
+                               rtol=t_tol[0], atol=t_tol[1])
+    for f in ("kind", "idx", "mat", "area"):
+        np.testing.assert_array_equal(got[f][held], want[f][held], f)
+    for f in ("pos", "ng", "ns"):
+        for c in range(3):
+            np.testing.assert_allclose(
+                np.asarray(getattr(rec, f)[c])[held],
+                np.asarray(getattr(jrec, f)[c])[held], rtol=1e-5, atol=1e-5,
+                err_msg=f)
+    for f in ("u", "v"):
+        np.testing.assert_allclose(got[f][held], want[f][held], rtol=1e-5,
+                                   atol=1e-5, err_msg=f)
+    miss = ~got["hit"] & ~want["hit"]
+    for out in (got, want):
+        assert (out["t"][miss] == np.float32(F32_MAX)).all()
+        assert (out["idx"][miss] == -1).all() and \
+            (out["mat"][miss] == 0).all()
+    return {"held": int(held.sum()), "hits": int(both.sum()),
+            "knife": int(knife.sum()), "tied": int((both & ~unique).sum())}
+
+
+def _barycentrics(scene, idx: np.ndarray, pos: np.ndarray):
+    """(bu, bv) of ``pos`` in triangle ``idx`` of the port scene (0 where
+    idx < 0), in float64."""
+    if not scene.n_tris:
+        return np.zeros(len(idx)), np.zeros(len(idx))
+    i = np.clip(idx, 0, scene.n_tris - 1)
+    v = [np.stack([np.asarray(c, np.float64) for c in vert], -1)[i]
+         for vert in (scene.tv0, scene.tv1, scene.tv2)]
+    e1, e2, p = v[1] - v[0], v[2] - v[0], pos - v[0]
+    d11, d12, d22 = (e1 * e1).sum(-1), (e1 * e2).sum(-1), (e2 * e2).sum(-1)
+    p1, p2 = (p * e1).sum(-1), (p * e2).sum(-1)
+    den = d11 * d22 - d12 * d12
+    with np.errstate(divide="ignore", invalid="ignore"):
+        bu = np.where(den > 0, (d22 * p1 - d12 * p2) / den, 0.0)
+        bv = np.where(den > 0, (d11 * p2 - d12 * p1) / den, 0.0)
+    return np.where(idx >= 0, bu, 0.0), np.where(idx >= 0, bv, 0.0)

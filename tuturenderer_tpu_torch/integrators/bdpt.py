@@ -50,7 +50,7 @@ from ..materials import (PI, MatParams, bxdf_eval, bxdf_pdf, bxdf_sample,
 from ..ops.intersect import intersect_core, occluded, shade_hit
 from ..ops.lights import light_pdf_of_hit, sample_cosine_dir, sample_light
 from ..options import EPSILON, MIN_DIVISOR, RenderOptions
-from ..scene.data import PERFECT_REFLECTIVE, PERFECT_REFRACTIVE, UNLIT
+from ..scene.data import UNLIT
 from ..utils import rng
 from ..utils.vec import Vec3, reflect, where as vwhere
 from .light import splat_film
@@ -79,8 +79,7 @@ def _vertex_pdfs(params: MatParams, wi: Vec3, wo: Vec3, ns: Vec3, ng: Vec3,
     vertex (BDPT.hpp:256-267)."""
     cos_f = wi.dot(ng).abs()
     fwd = dir_pdf / torch.clamp(cos_f, min=1e-20)
-    is_delta = (params.mtype == PERFECT_REFLECTIVE) | \
-        (params.mtype == PERFECT_REFRACTIVE)
+    is_delta = params.is_delta
     rev_raw = bxdf_pdf(params, wo, wi, ns, eta_scene, params.eta, types=types)
     rev = rev_raw / torch.clamp(wo.dot(ng).abs(), min=1e-20)
     rev = torch.where(is_delta, fwd, rev)

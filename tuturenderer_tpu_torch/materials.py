@@ -50,6 +50,10 @@ class MatParams(NamedTuple):
         """Materials routed through calcForRefractive (PathTracing.hpp:152-154)."""
         return (self.mtype == PERFECT_REFRACTIVE) | (self.mtype == MICROFACET_T)
 
+    @property
+    def is_delta(self):
+        return (self.mtype == PERFECT_REFLECTIVE) | (self.mtype == PERFECT_REFRACTIVE)
+
 
 def gather_material(scene: SceneData, mat_idx) -> MatParams:
     """Per-lane rows of the material table (plain indexing).

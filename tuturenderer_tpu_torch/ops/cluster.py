@@ -86,6 +86,14 @@ class Clusters:
                 "woop alone")
         object.__setattr__(self, "n_real", n_real)
 
+    @property
+    def n_clusters(self) -> int:
+        return self.aabb.shape[0]
+
+    @property
+    def cluster_size(self) -> int:
+        return self.tri_idx.shape[1]
+
     def _moved_rows(self) -> torch.Tensor:
         """The number of BVH rows whose 12 floats differ, bit for bit, from
         the Woop row that ``bvh_virt`` names, as an int64 tensor; 0 where

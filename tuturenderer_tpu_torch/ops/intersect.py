@@ -333,3 +333,6 @@ def shade_hit(scene: SceneData, orig: Vec3, d: Vec3,
     return HitRecord(t=core.t, hit=core.hit, pos=pos, ng=ng, ns=ns, u=u, v=v,
                      mat=mat, kind=core.kind, idx=core.idx, area=area)
 
+
+def intersect_scene(scene: SceneData, orig: Vec3, d: Vec3) -> HitRecord:
+    return shade_hit(scene, orig, d, intersect_core(scene, orig, d))

@@ -86,10 +86,20 @@ class Vec3(NamedTuple):
     def max_component(self) -> Tensor:
         return torch.maximum(self.x, torch.maximum(self.y, self.z))
 
+    def abs(self) -> "Vec3":
+        return Vec3(self.x.abs(), self.y.abs(), self.z.abs())
+
     # ---- structural ----
+    def astype(self, dtype: torch.dtype) -> "Vec3":
+        return Vec3(self.x.to(dtype), self.y.to(dtype), self.z.to(dtype))
+
     def stack(self, dim: int = -1) -> Tensor:
         """Materialize as a dense [..., 3] tensor (host/IO boundary only)."""
         return torch.stack([self.x, self.y, self.z], dim=dim)
+
+    @property
+    def shape(self):
+        return tuple(np.shape(self.x))
 
 
 def vec3(x, y=None, z=None, device=None) -> Vec3:
@@ -100,9 +110,18 @@ def vec3(x, y=None, z=None, device=None) -> Vec3:
     return Vec3(f(x), f(y), f(z))
 
 
+def from_stacked(a: Tensor) -> Vec3:
+    """[..., 3] dense tensor -> Vec3 (host/IO boundary only)."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+
 def where(mask: Tensor, a: Vec3, b: Vec3) -> Vec3:
     return Vec3(torch.where(mask, a.x, b.x), torch.where(mask, a.y, b.y),
                 torch.where(mask, a.z, b.z))
+
+
+def select_scalar(mask: Tensor, a, b) -> Tensor:
+    return torch.where(mask, a, b)
 
 
 def lerp(v0: Vec3, v1: Vec3, t) -> Vec3:
