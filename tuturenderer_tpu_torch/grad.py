@@ -15,6 +15,12 @@ pass replays one sample batch at a time, so memory stays O(1) in spp.
 
 The material table is gathered per lane by plain indexing, whose autograd
 backward is the scatter-add the JAX package writes as a custom VJP.
+
+Spans of ``utils/profiling.py``: ``image_loss_and_grad`` is a unit,
+``step``; ``_RenderDiff`` opens ``replay.forward`` around its forward
+pass and, in its backward pass, ``replay.batch`` around each batch's
+forward and ``replay.grad`` around its ``torch.autograd.grad``, whose
+child ``bounce`` spans are the checkpoint's recomputation.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from .integrators.path import _block_order, render_sample
 from .options import RenderOptions
 from .scene.data import TRIANGLE, SceneData
 from .utils.device import DEFAULT_DEVICE, resolve
+from .utils.profiling import span, unit
 from .utils.vec import Vec3
 
 
@@ -185,7 +192,8 @@ class _RenderDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, frame: _Frame, *leaves):
         ctx.frame = frame
-        acc = sum(frame.batch(leaves, s) for s in range(frame.batches))
+        with span("replay.forward"):
+            acc = sum(frame.batch(leaves, s) for s in range(frame.batches))
         ctx.save_for_backward(acc, *leaves)
         return frame.image(acc)
 
@@ -203,8 +211,11 @@ class _RenderDiff(torch.autograd.Function):
         for s in range(frame.batches):
             with torch.enable_grad():
                 copies = [a.detach().requires_grad_(True) for a in leaves]
-                got = torch.autograd.grad(frame.batch(copies, s), copies,
-                                          grad_acc, allow_unused=True)
+                with span("replay.batch"):
+                    out = frame.batch(copies, s)
+                with span("replay.grad"):
+                    got = torch.autograd.grad(out, copies, grad_acc,
+                                              allow_unused=True)
             grads = [g if d is None else g + d for g, d in zip(grads, got)]
         return (None, *grads)
 
@@ -366,13 +377,14 @@ def image_loss_and_grad(params: MaterialParams, target: torch.Tensor,
     """L2 image loss against ``target`` and its gradient with respect to
     ``params`` -> (loss, MaterialParams of gradients): the core step of
     inverse-rendering loops. ``params`` are not modified."""
-    leaves = [a.detach().requires_grad_(True) for a in params.leaves()]
-    img = render_diff(MaterialParams.from_leaves(leaves), scene, cam, opts,
-                      seed)
-    loss = torch.mean((img - target) ** 2)
-    # a parameter no lane reads (a type's field the scene never uses) has
-    # gradient 0
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with unit("step"):
+        leaves = [a.detach().requires_grad_(True) for a in params.leaves()]
+        img = render_diff(MaterialParams.from_leaves(leaves), scene, cam,
+                          opts, seed)
+        loss = torch.mean((img - target) ** 2)
+        # a parameter no lane reads (a type's field the scene never uses)
+        # has gradient 0
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), MaterialParams.from_leaves(
         [torch.zeros_like(a) if g is None else g
          for a, g in zip(leaves, grads)])

@@ -48,6 +48,12 @@ picks a uniformly random subset, whose weights are scaled by live/kept, so
 the estimate stays unbiased; the number of live lanes dropped so is
 counted on the device (``collect_overflow``, ``render(stats=True)``).
 A shrink launches no kernel, so the launch counts are those above.
+
+Under ``utils/profiling.py``'s spans, ``render`` is a unit with a
+``render.sample`` span a sample batch, and ``trace_rays`` opens one
+``bounce`` span a bounce (counting its depth; a checkpointed bounce opens
+it again when the backward pass recomputes it), ``bounce.epilogue`` and
+``bounce.compact``; the queries, shading and draws inside open their own.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from ..ops.lights import light_pdf_of_hit, sample_light
 from ..options import EPSILON, MIN_DIVISOR, RenderOptions
 from ..scene.data import (MICROFACET_T, PERFECT_REFLECTIVE, UNLIT, SceneData)
 from ..utils import rng
+from ..utils.profiling import live_lanes, span, spanned, unit
 from ..utils.vec import Vec3, reflect, where as vwhere
 
 # lane provenance at loop top (what produced the current ray)
@@ -104,6 +111,7 @@ def _ones3(n, device):
     return Vec3(o, o, o)
 
 
+@spanned("shade.material")
 def apply_textures(scene: SceneData, hit, params: MatParams):
     """textureModify + changeNormalDir (IIntegrator.hpp:27-127): override
     diffuse/roughness/metallic from maps and perturb the shading normal via
@@ -418,6 +426,8 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
         # no pending emissive strategy
         epilogue = lambda st: st['L']
 
+    bounce = _bounce_span(bounce)
+    epilogue = spanned("bounce.epilogue")(epilogue)
     step = functools.partial(_remat, bounce) if opts.differentiable \
         else bounce
     if opts.compaction:
@@ -430,14 +440,24 @@ def trace_rays(scene: SceneData, cam: Camera, orig: Vec3, d: Vec3,
     counts = []
     for depth in range(opts.max_depth + 1):
         if collect_alive:
-            counts.append(st['alive'].sum())
+            counts.append(live_lanes(st['alive']))
         st = step(st, depth)
     if collect_alive:
-        counts.append(st['alive'].sum())
+        counts.append(live_lanes(st['alive']))
         return epilogue(st), torch.stack(counts)
     if collect_overflow:
         return epilogue(st), torch.zeros((), dtype=torch.int32, device=dev)
     return epilogue(st)
+
+
+def _bounce_span(fn):
+    """``fn(st, depth)`` inside a ``bounce`` span that counts its
+    depth."""
+    def run(st, depth: int):
+        with span("bounce") as sp:
+            sp.count("depth", depth)
+            return fn(st, depth)
+    return run
 
 
 def _lane_keys(lane, smp) -> dict:
@@ -475,6 +495,7 @@ def _flush(film: torch.Tensor, st) -> torch.Tensor:
                           torch.stack(tuple(st['L']), dim=-1))
 
 
+@spanned("bounce.compact")
 def _compact(st, film, k: int, depth: int, seed):
     """Shrink the wavefront to ``k`` lanes: flush every lane's radiance
     into the film, order the lanes by their roulette key (a uniform draw
@@ -716,6 +737,13 @@ def render_sample(scene: SceneData, cam: Camera, px, py, lane, sample_idx,
                   seed, opts: RenderOptions, collect_overflow: bool = False):
     """Per-lane radiance of one sample (a NaN sample counts as 0), and with
     ``collect_overflow`` the compaction roulette's dropped-lane count."""
+    with span("render.sample"):
+        return _render_sample(scene, cam, px, py, lane, sample_idx, seed,
+                              opts, collect_overflow)
+
+
+def _render_sample(scene, cam, px, py, lane, sample_idx, seed, opts,
+                   collect_overflow):
     if opts.jitter:
         jx = rng.uniform(seed, lane, sample_idx, 0, rng.PIXEL_JX)
         jy = rng.uniform(seed, lane, sample_idx, 0, rng.PIXEL_JY)
@@ -756,6 +784,11 @@ def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
     ``stats=True`` returns (img, {"compaction_overflow": int32 0-d tensor
     on the device}): the live lanes the compaction roulette dropped over
     the whole render, which the caller reads after its own sync."""
+    with unit("render"):
+        return _render(scene, cam, opts, seed, sample_base, stats)
+
+
+def _render(scene, cam, opts, seed, sample_base, stats):
     dev = scene.device
     p = cam.n_pixels
     order_np = _block_order(cam.width, cam.height)

@@ -9,6 +9,10 @@ select picks the active one.
 Reference quirk kept as an option: ``sampleDirection`` for MICROFACET_R
 uses a^2 = roughness^2 (Material.hpp:212-214) while its pdf uses
 a^2 = roughness^4; ``ggx_sample_bug=True`` reproduces it.
+
+``gather_material`` is a ``shade.material`` span of ``utils/profiling.py``,
+and the BSDF's evaluation, sampling, pdf and MIS weight ``shade.bsdf``
+spans.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from .scene.data import (LAMBERTIAN, MICROFACET_R, MICROFACET_T,
                          PERFECT_REFLECTIVE, PERFECT_REFRACTIVE, UNLIT,
                          SceneData)
+from .utils.profiling import spanned
 from .utils.vec import (Vec3, lerp, local_to_world, reflect, refract,
                         where as vwhere)
 
@@ -55,6 +60,7 @@ class MatParams(NamedTuple):
         return (self.mtype == PERFECT_REFLECTIVE) | (self.mtype == PERFECT_REFRACTIVE)
 
 
+@spanned("shade.material")
 def gather_material(scene: SceneData, mat_idx) -> MatParams:
     """Per-lane rows of the material table (plain indexing).
 
@@ -132,6 +138,7 @@ def _safe_div_v(v: Vec3, b) -> Vec3:
 
 # ---------------------------------------------------------------- evaluate
 
+@spanned("shade.bsdf")
 def bxdf_eval(p: MatParams, wi_in: Vec3, wo_in: Vec3, ng: Vec3, ns: Vec3,
               eta_scene, adjoint=False, tir=None, types=None) -> Vec3:
     """Material::BxDF (Material.hpp:62-191).
@@ -263,6 +270,7 @@ def _ggx_half_vector(n: Vec3, roughness, r0, r1, a2):
     return local_to_world(n, local)
 
 
+@spanned("shade.bsdf")
 def bxdf_sample(p: MatParams, wo: Vec3, n: Vec3, r0, r1, lottery, eta_scene,
                 ggx_sample_bug: bool = False, types=None) -> SampleResult:
     """Material::sampleDirection (Material.hpp:200-343)."""
@@ -334,6 +342,7 @@ def bxdf_sample(p: MatParams, wo: Vec3, n: Vec3, r0, r1, lottery, eta_scene,
 
 # ---------------------------------------------------------------- pdf
 
+@spanned("shade.bsdf")
 def bxdf_pdf(p: MatParams, wi: Vec3, wo: Vec3, n: Vec3, eta_scene,
              eta_mat=None, types=None):
     """Material::pdf (Material.hpp:350-439); solid-angle measure."""
@@ -405,6 +414,7 @@ def bxdf_pdf(p: MatParams, wi: Vec3, wo: Vec3, n: Vec3, eta_scene,
     return out
 
 
+@spanned("shade.bsdf")
 def mis_power_weight(pdf, other_pdf):
     """Power heuristic (global.hpp:374-380)."""
     s = pdf + other_pdf

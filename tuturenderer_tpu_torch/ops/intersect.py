@@ -18,6 +18,13 @@ Pallas kernels. Acceptance rules mirror the reference:
 
 The JAX package traces a cluster scene's wavefront in octant-Morton order
 on the TPU; the port traces it in the caller's order.
+
+Each query is a span of ``utils/profiling.py`` (``isect.nearest``,
+``isect.anyhit``, ``isect.transmit``, and ``shade.hit``), the one place
+every integrator's queries pass; while spans record, a query's span
+carries the lanes it was launched with and the lanes its mask lets
+through: two launches more a masked query on the card (the mask's cast to
+int64 and its sum), and no sync.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..scene.data import SPHERE, TRIANGLE, SceneData
+from ..utils.profiling import count_lanes, span, spanned
 from ..utils.vec import Vec3, where as vwhere
 from .cuda.cluster import (cluster_intersect, cluster_occluded,
                            cluster_transmittance)
@@ -146,6 +154,12 @@ def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
                    mask=None) -> HitCore:
     """Nearest hit of each ray against the whole scene. ``mask`` (optional
     bool [N]): lanes with mask=False are traced as never-hit rays."""
+    with span("isect.nearest") as sp:
+        count_lanes(sp, orig.x.shape[0], mask)
+        return _nearest(scene, orig, d, mask)
+
+
+def _nearest(scene: SceneData, orig: Vec3, d: Vec3, mask=None) -> HitCore:
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
     if scene.clusters is not None:
@@ -175,11 +189,17 @@ def occluded(scene: SceneData, orig: Vec3, d: Vec3, dist,
     """Any hit within ``dist`` (shadow ray), with the FLOAT_EQUAL guard at
     the endpoint (hasIntersection, BVH.hpp:170-194). Dead lanes (mask
     False) become degenerate rays with dist 0 and report unblocked."""
+    with span("isect.anyhit") as sp:
+        count_lanes(sp, orig.x.shape[0], mask)
+        return _occluded(scene, orig, d, dist, mask)
+
+
+def _occluded(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None):
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
         dist = torch.where(mask, dist, 0.0)
     if not scene.n_tris:
-        core = intersect_core(scene, orig, d)
+        core = _nearest(scene, orig, d)
         return core.hit & (core.t < dist) & \
             ((core.t - dist).abs() >= PARALLEL_EPS)
     if scene.clusters is not None:
@@ -204,6 +224,12 @@ def transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist,
     Moller-Trumbore test of the JAX package's dense loop. ``dist`` is [N].
     Dead lanes (mask False) get dist 0 and a degenerate ray:
     transmittance 1."""
+    with span("isect.transmit") as sp:
+        count_lanes(sp, orig.x.shape[0], mask)
+        return _transmittance(scene, orig, d, dist, mask)
+
+
+def _transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None):
     n = orig.x.shape[0]
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
@@ -272,6 +298,7 @@ def _sphere_transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist):
     return torch.where(ok, 1.0 - a, 1.0).prod(dim=1)
 
 
+@spanned("shade.hit")
 def shade_hit(scene: SceneData, orig: Vec3, d: Vec3,
               core: HitCore) -> HitRecord:
     """Expand a HitCore into a full shading record by gathering the winning

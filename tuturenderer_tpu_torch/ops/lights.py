@@ -9,6 +9,9 @@ knobs:
 - ``tutu_tri_sample``: u=r0, v=r1*(1-u) (Triangle.hpp:119-135); the
   default is the uniform sqrt warp. Spheres are sampled uniformly in angles
   (Sphere.hpp:139-164).
+
+``sample_light`` and ``light_pdf_of_hit`` are ``shade.light`` spans of
+``utils/profiling.py``.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from ..materials import PI
 from ..scene.data import SPHERE, SceneData
+from ..utils.profiling import spanned
 from ..utils.vec import Vec3, local_to_world
 
 
@@ -35,6 +39,7 @@ def _gather_vec3(v: Vec3, idx) -> Vec3:
     return Vec3(*(torch.index_select(c, 0, idx) for c in v))
 
 
+@spanned("shade.light")
 def sample_light(scene: SceneData, r_pick, r0, r1,
                  tutu_light_pick: bool = False,
                  tutu_tri_sample: bool = False) -> LightSample:
@@ -99,6 +104,7 @@ def sample_light(scene: SceneData, r_pick, r0, r1,
                        valid=torch.ones_like(r_pick, dtype=torch.bool))
 
 
+@spanned("shade.light")
 def light_pdf_of_hit(scene: SceneData, hit_kind, hit_idx, hit_mat,
                      hit_area=None):
     """getLightPdf (IIntegrator.hpp:155-168): 1/(n_lights * area) if the hit

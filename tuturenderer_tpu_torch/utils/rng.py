@@ -9,10 +9,15 @@ so the words live in int64 and every add, left shift and multiply is
 reduced modulo 2**32 with ``& 0xFFFFFFFF``. A multiply by a 32-bit constant
 could pass 2**63, so it is split into the constant's 16-bit halves
 (``_mul32``): no intermediate exceeds 2**49.
+
+Each draw is an ``rng`` span of ``utils/profiling.py`` that counts the
+numbers drawn (``draws``).
 """
 from __future__ import annotations
 
 import torch
+
+from .profiling import span
 
 MASK = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
@@ -58,11 +63,19 @@ def hash_u32(*words):
 
 def uniform(seed, lane, sample, bounce, purpose):
     """U[0, 1) float32 for each lane. All args broadcastable ints."""
-    bits = hash_u32(seed, lane, sample, bounce * 32 + purpose)
-    # 24-bit mantissa -> [0, 1), exact in float32
-    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    with span("rng") as sp:
+        return _draw(sp, seed, lane, sample, bounce * 32 + purpose)
 
 
 def uniform_simple(seed, lane, tag):
-    bits = hash_u32(seed, lane, tag)
-    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    with span("rng") as sp:
+        return _draw(sp, seed, lane, tag)
+
+
+def _draw(sp, *words):
+    bits = hash_u32(*words)
+    # 24-bit mantissa -> [0, 1), exact in float32
+    out = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    if sp.on:
+        sp.count("draws", out.numel())
+    return out
