@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``
-   (K1-K4), ``bvh_walk.cu`` (K5-K7) and ``proto_visit.cu`` (K8), one
-   process each, started together, with each kernel's registers, stack
-   frame and spills;
+   (K1-K4), ``bvh_walk.cu`` (K5-K7), ``proto_visit.cu`` (K8) and
+   ``rng.cu`` (the RNG's draw), one process each, started together, with
+   each kernel's registers, stack frame and spills;
 3. each dense intersection kernel, in the Woop form (K1, K2) and the
    Moller-Trumbore form (K3, K4), against its plain PyTorch version on the
    card: simple_box's 12 triangles at 1,048,576 rays, the first 100,001 of
@@ -26,7 +26,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    there;
 4. the dense slice: ``render(simple_box(1024, 1024), RenderOptions(spp=64))``
    on the card, timed by ``utils/profiling.py``'s ``measure_render``, with
-   the kernel launch counts of that run;
+   the kernel launch counts of that run; the RNG kernel's launches of that
+   run held to the ``rng`` spans of the same render run again under the
+   span recorder, one a span, every number drawn by the kernel;
 5. the render at the size of the stored JAX reference image
    (``tests/data/torch_simple_box_jax_ref.npy``) against that image;
 6. each cluster kernel, the three modes of the BVH walk of
@@ -168,7 +170,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     timing.py``), so the share of ``shade_hit``'s gathers is on record;
     and phase 4's render under ``utils/profiling.py``: the
     ``measure_render`` that timed it and ``rays_per_path`` at every lane
-    alive and at the live fractions measured there.
+    alive and at the live fractions measured there;
+24. the RNG kernel (``csrc/rng.cu``) against the plain hash at 1,048,576
+    and 4,194,304 lanes, as the path tracer draws (seed and bounce word
+    Python ints, lane and sample int32 columns): every purpose bit-equal,
+    one launch a draw, and the device time of a draw beside its bound by
+    bytes and the plain hash's time a draw. The kernels line gives it phase
+    4's launches and the largest difference from the plain hash seen here.
 
 Every render of phases 14-22 is timed and its kernel launches are held to
 the count its log line's formula gives. Their kernel comparisons run on the
@@ -436,7 +444,7 @@ def phase_device():
 def phase_build():
     log("== phase 2: build")
     from tuturenderer_tpu_torch.ops.cuda import build
-    names = ("dense_intersect", "bvh_walk", "proto_visit")
+    names = ("dense_intersect", "bvh_walk", "proto_visit", "rng")
     t0 = time.perf_counter()
     build.load_all(names)
     secs = time.perf_counter() - t0
@@ -600,6 +608,7 @@ def phase_slice(dev):
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
     from tuturenderer_tpu_torch.options import RenderOptions
     from tuturenderer_tpu_torch.scene.presets import simple_box
+    from tuturenderer_tpu_torch.utils import rng
     from tuturenderer_tpu_torch.utils.profiling import measure_render
     opts = RenderOptions(spp=64)
     scene, cam = simple_box(1024, 1024, device=dev)
@@ -610,6 +619,7 @@ def phase_slice(dev):
 
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    rng.LAUNCHES = 0
     # timed by utils/profiling.py's measure_render (the card synchronised
     # at both edges); phase 23 prints its counters
     out = []
@@ -618,9 +628,12 @@ def phase_slice(dev):
                            cam.width, cam.height, opts.spp, opts.max_depth)
     img, wall = out[0], stats.wall_s
     launches = dict(LAUNCHES)
+    rng_launches = rng.LAUNCHES
 
     per_sample = {"nearest": opts.max_depth + 2, "anyhit": opts.max_depth + 1}
     check_launches(launches, {k: v * opts.spp for k, v in per_sample.items()})
+    launches["rng_uniform"] = check_rng_launches(
+        rng_launches, lambda: render(scene, cam, opts, seed=0), img, opts.spp)
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("render produced non-finite pixels")
     if tuple(img.shape) != (1024, 1024, 3):
@@ -630,6 +643,39 @@ def phase_slice(dev):
     KEPT["simple_box"] = img.cpu().numpy()
     KEPT["simple_box stats"] = (stats, opts, fracs)
     return launches
+
+
+def check_rng_launches(got: int, again, img, spp: int) -> int:
+    """Hold the RNG kernel's launches in a render, ``got``, to the draws
+    of the same render run again under ``utils/profiling.py``'s recorder
+    (``again()``, bit-equal to ``img``): one launch an ``rng`` span, and
+    every number drawn by the kernel. -> ``got``."""
+    from tuturenderer_tpu_torch.utils import profiling, rng
+    last = max((s.sid for s in profiling.recorded()), default=-1)
+    before = rng.LAUNCHES
+    with profiling.recording():
+        img2 = again()
+        torch.cuda.synchronize()
+    # the buffer keeps spans in the order they close; a span's sid is the
+    # order it opened in, so a render kept whole holds every sid after last
+    new = [s for s in profiling.recorded() if s.sid > last]
+    sids = sorted(s.sid for s in new)
+    if not sids or sids != list(range(last + 1, sids[-1] + 1)):
+        raise AssertionError("the span buffer dropped spans of the render")
+    draws = [s for s in new if s.name == "rng"]
+    numbers = sum(s.counts["draws"] for s in draws)
+    kernel = sum(s.counts.get("kernel", 0) for s in draws)
+    log(f"RNG kernel launches: {got} in the render ({got / spp:.2f} a "
+        f"sample); its recorded run: {len(draws)} rng spans, "
+        f"{rng.LAUNCHES - before} launches, {kernel} of {numbers} numbers "
+        f"drawn by the kernel")
+    if not torch.equal(img2, img):
+        raise AssertionError("the recorded render differs from the render")
+    if not got == len(draws) == rng.LAUNCHES - before or kernel != numbers:
+        raise AssertionError(f"RNG kernel launches {got}, expected one an rng"
+                             f" span ({len(draws)}); kernel drew {kernel} "
+                             f"of {numbers}")
+    return got
 
 
 def rays_per_path(scene, cam, opts, dev):
@@ -2835,6 +2881,63 @@ def phase_intersect_scene(dev) -> dict:
     return errs
 
 
+def phase_rng(dev, launches: int) -> dict:
+    """Phase 24: the RNG kernel against the plain hash at the path
+    tracer's widths; -> the kernel's entry for the kernels line, with
+    ``launches``, those of phase 4's render."""
+    log("== phase 24: the RNG kernel (csrc/rng.cu) against the plain hash")
+    from tuturenderer_tpu_torch.utils import rng
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    t_phase = time.perf_counter()
+    stats = {}
+    err = 0.0
+    for n in (1 << 20, 1 << 22):
+        g = torch.Generator(device=dev).manual_seed(n)
+        lane = torch.randint(0, 2**31 - 1, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+        smp = torch.randint(0, 1 << 20, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        for purpose in range(12):
+            before = rng.LAUNCHES
+            got = rng.uniform(4100000001, lane, smp, 3, purpose)
+            if rng.LAUNCHES != before + 1:
+                raise AssertionError(f"a draw launched {rng.LAUNCHES - before}"
+                                     " kernels, expected 1")
+            want = rng.uniform_plain(4100000001, lane, smp, 3, purpose)
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                diff = int((got != want).sum())
+                raise AssertionError(f"RNG kernel differs from the plain hash "
+                                     f"on {diff} of {n} lanes, purpose "
+                                     f"{purpose}")
+        kernel = lambda: rng.uniform(4100000001, lane, smp, 3, rng.BSDF_U0)
+        plain = lambda: rng.uniform_plain(4100000001, lane, smp, 3,
+                                          rng.BSDF_U0)
+        ms = device_ms(kernel)
+        # the plain hash copies its Python-int words to the card and waits
+        # at each copy, so its calls cannot be held behind a spin: its
+        # time is a call's, host gaps included
+        plain_ms = device_ms(plain, hold_ms=0)
+        bound_ms = n * 12 / PEAK_BYTES * 1e3
+        stats[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        wall_ms=wall_ms(kernel), plain_wall_ms=wall_ms(plain))
+        log(f"  {n} lanes: 12 purposes bit-equal, one launch a draw; kernel "
+            f"{ms:.4f} ms a draw (bound {bound_ms:.4f} ms by 12 bytes a "
+            f"lane, {bound_ms / ms * 100:.1f} %), with launch overhead "
+            f"{stats[n]['wall_ms']:.4f}; plain hash {plain_ms:.4f} ms a "
+            f"draw, {stats[n]['plain_wall_ms']:.4f} a single call")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    main_n = 1 << 22
+    return {"name": "rng_uniform", "route": "cuda",
+            "source": "tuturenderer_tpu_torch/csrc/rng.cu",
+            "replaces": None, "launches": launches, "max_abs_err": err,
+            "ms": stats[main_n]["ms"], "plain_ms": stats[main_n]["plain_ms"],
+            "bound_ms": stats[main_n]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "at_1M": {k: stats[1 << 20][k] for k in ("ms", "plain_ms",
+                                                       "bound_ms")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2890,6 +2993,7 @@ def main() -> int:
     new_errs = phase_intersect_scene(dev)
     merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
     merge_errs(cl_errs, {k: v for k, v in new_errs.items() if k not in errs})
+    rng_kernel = phase_rng(dev, launches["rng_uniform"])
     log(f"the whole script: {time.perf_counter() - t_start:.1f} s")
     # K1/K2 launches from the simple_box render, K3/K4 from the dense
     # training path's forward+backward; times and bounds at simple_box's
@@ -2921,6 +3025,7 @@ def main() -> int:
         "source": SOURCES["proto_visit"], "replaces": REPLACES["proto_visit"],
         "launches": visit_launches["proto_visit"], "max_abs_err": visit_err,
         **visit, "library_ms": None})
+    kernels.append(rng_kernel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

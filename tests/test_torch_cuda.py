@@ -5,7 +5,8 @@ on a machine that has only PyTorch:
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: exact. The kernels are built with --fmad=false and compute the
-plain versions' float32 expressions in the same order (the dense kernels
+plain versions' float32 expressions in the same order (the RNG kernel
+their integer hash, in uint32) (the dense kernels
 in both forms, Woop and Moller-Trumbore, and the visit-walk probe). The
 cluster kernels (the BVH walk of the nearest hit, the any hit and the
 transmittance) visit triangles in another order than their plain
@@ -31,6 +32,8 @@ from tuturenderer_tpu_torch.options import RenderOptions
 from tuturenderer_tpu_torch.scene.data import SceneBuilder
 from tuturenderer_tpu_torch.scene.presets import simple_box
 from tuturenderer_tpu_torch.tools import proto_visit as P
+from tuturenderer_tpu_torch.utils import profiling
+from tuturenderer_tpu_torch.utils import rng
 
 pytestmark = pytest.mark.gpu
 
@@ -623,3 +626,161 @@ def test_non_finite_raster_is_outside_on_the_card(dev):
     assert idx[:2].tolist() == [-1, -1] and int(idx[2]) >= 0
     we, _ = importance_we(cam, pts)
     assert we[:2].tolist() == [0.0, 0.0]
+
+
+# ------------------------------------------------------------ the RNG kernel
+
+RNG_LANES = 1 << 20
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _rng_keys(dev, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lane = torch.randint(0, 2**31 - 1, (RNG_LANES,), generator=g,
+                         device=dev).to(dtype)
+    lane[:3] = torch.tensor([0, 1, 2**31 - 1], device=dev)
+    sample = torch.randint(0, 1 << 20, (RNG_LANES,), generator=g,
+                           device=dev).to(dtype)
+    seeds = torch.randint(0, 2**31 - 1, (RNG_LANES,), generator=g,
+                          device=dev).to(dtype)
+    return seeds, lane, sample
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("seed_as", ["int", "0-d", "column"])
+def test_rng_kernel_equals_plain_hash(dev, dtype, seed_as):
+    """Every purpose at 1,048,576 lanes: the kernel's bits equal the plain
+    hash's, the seed a Python int, a 0-d CUDA tensor or a column, the
+    bounce word a Python int and a column; one launch a draw."""
+    seeds, lane, sample = _rng_keys(dev, dtype, seed=len(seed_as))
+    seed = {"int": 2**31 - 1, "0-d": torch.tensor(-7, dtype=dtype,
+                                                  device=dev),
+            "column": seeds}[seed_as]
+    bounce = (lane % 16).to(dtype)
+    for purpose in range(12):
+        before = rng.LAUNCHES
+        got = rng.uniform(seed, lane, sample, purpose % 7, purpose)
+        assert rng.LAUNCHES == before + 1
+        want = rng.uniform_plain(seed, lane, sample, purpose % 7, purpose)
+        assert got.dtype == torch.float32 and got.shape == (RNG_LANES,)
+        assert torch.equal(_bits(got), _bits(want))
+        got = rng.uniform(seed, lane, sample, bounce, purpose)
+        want = rng.uniform_plain(seed, lane, sample, bounce, purpose)
+        assert torch.equal(_bits(got), _bits(want))
+    got = rng.uniform_simple(seed, lane, 3)
+    assert torch.equal(_bits(got), _bits(rng.uniform_simple_plain(
+        seed, lane, 3)))
+    got = rng.uniform_simple(seed, lane, sample)
+    assert torch.equal(_bits(got), _bits(rng.uniform_simple_plain(
+        seed, lane, sample)))
+
+
+def test_rng_kernel_odd_columns(dev):
+    """Columns the kernel reads one lane at a time: a broadcast sample id
+    (stride 0), a strided view, a view that starts off 16 bytes, ragged
+    lengths, a 0-d draw and a contiguous 2-D one."""
+    lane = torch.arange(-5000, 5000, dtype=torch.int32, device=dev) * 7919
+    smp = torch.broadcast_to(torch.tensor(12, dtype=torch.int32,
+                                          device=dev), (4093,))
+    cases = [(lane[:4093], smp), (lane[::2], lane[1::2]),
+             (lane[1:4094], lane[2:4095]), (lane[:1], lane[5:6]),
+             (lane[:7], lane[9:16]),
+             (torch.tensor(3, device=dev), torch.tensor(4, device=dev)),
+             (lane[:6000].reshape(60, 100), lane[4000:].reshape(60, 100))]
+    for a, b in cases:
+        got = rng.uniform(9, a, b, 2, rng.RR)
+        want = rng.uniform_plain(9, a, b, 2, rng.RR)
+        assert got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want))
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = rng.LAUNCHES
+    assert rng.uniform(1, empty, empty, 0, 0).shape == (0,)
+    assert rng.LAUNCHES == before
+
+
+def test_rng_draw_copies_nothing_to_the_card(dev):
+    """One draw with the seed and bounce as Python ints is one kernel and
+    no host-to-device copy in the profiler's trace (the plain hash makes
+    three)."""
+    from torch.profiler import ProfilerActivity, profile
+    lane = torch.arange(RNG_LANES, dtype=torch.int32, device=dev)
+    rng.uniform(5, lane, lane, 1, rng.BSDF_U0)
+    torch.cuda.synchronize()
+
+    def records(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        return ([n for n in names if "HtoD" in n],
+                [n for n in names if "rng_uniform_kernel" in n])
+
+    before = rng.LAUNCHES
+    copies, kernels = records(lambda: rng.uniform(5, lane, lane, 1,
+                                                  rng.BSDF_U0))
+    assert rng.LAUNCHES == before + 1
+    assert copies == [] and len(kernels) == 1
+    copies, _ = records(lambda: rng.uniform_plain(5, lane, lane, 1,
+                                                  rng.BSDF_U0))
+    assert len(copies) == 3
+
+
+def test_rng_draw_captures_in_a_cuda_graph(dev):
+    """A draw captures into a CUDA graph, which a sync or a host-to-device
+    copy from pageable memory would break, and its replay redraws the
+    same bits."""
+    lane = torch.arange(RNG_LANES, dtype=torch.int32, device=dev)
+    smp = torch.full((RNG_LANES,), 4, dtype=torch.int32, device=dev)
+    rng.uniform(5, lane, smp, 2, rng.RR)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rng.uniform(5, lane, smp, 2, rng.RR)
+    smp.fill_(6)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(rng.uniform_plain(5, lane, smp, 2,
+                                                           rng.RR)))
+
+
+def test_rng_kernel_raises_on_words_it_does_not_take(dev):
+    lane = torch.arange(64, dtype=torch.int32, device=dev)
+    bad = [(lane.to(torch.int16), "int32 and int64"),
+           (torch.arange(64), "one CUDA device"),
+           (lane[:32], "does not broadcast"),
+           (lane[None, :], "does not broadcast"),
+           (lane.float(), "int32 and int64"),
+           (2.5, "ints and integer tensors")]
+    before = rng.LAUNCHES
+    for word, match in bad:
+        with pytest.raises(ValueError, match=match):
+            rng.uniform(1, lane, word, 0, rng.RR)
+    assert rng.LAUNCHES == before
+
+
+def test_render_draws_through_the_rng_kernel(dev):
+    """Every draw of a render on the card goes through the kernel: each
+    ``rng`` span's ``kernel`` count equals its ``draws``, one launch a
+    span; the image equals the plain hash's, bit for bit."""
+    scene, cam = simple_box(32, 24, device=dev)
+    opts = RenderOptions(spp=2, max_depth=3, jitter=True)
+    before = rng.LAUNCHES
+    with profiling.recording():
+        n0 = len(profiling.recorded())
+        img = render(scene, cam, opts, seed=1)
+        spans = [s for s in profiling.recorded()[n0:] if s.name == "rng"]
+    assert spans and rng.LAUNCHES - before == len(spans)
+    assert all(s.counts["kernel"] == s.counts["draws"] > 0 for s in spans)
+    real = (rng.uniform, rng.uniform_simple)
+    try:
+        rng.uniform, rng.uniform_simple = (rng.uniform_plain,
+                                           rng.uniform_simple_plain)
+        plain = render(scene, cam, opts, seed=1)
+    finally:
+        rng.uniform, rng.uniform_simple = real
+    assert torch.equal(_bits(img), _bits(plain))
