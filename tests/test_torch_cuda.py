@@ -536,6 +536,55 @@ def test_bdpt_goes_through_the_kernels(dev, mesh):
     assert close.mean() >= 0.99 and want.mean() > 0.05
 
 
+@pytest.mark.parametrize("mesh", [False, True], ids=["dense", "cluster"])
+def test_bdpt_replays_its_wavefront_from_a_cuda_graph(dev, mesh, monkeypatch):
+    """After a scene's first render, its wavefronts replay the captured
+    graph: the images equal the eager ones (``GRAPHS`` off) at two sample
+    bases within rtol 1e-5 / atol 1e-6 (the splats' atomic adds), and the
+    kernel and RNG launch counts of a replay are the eager wavefront's."""
+    from tuturenderer_tpu_torch.integrators import bdpt
+    (scene, cam), (near, occ) = _bdpt_scene(mesh, dev)
+    opts = RenderOptions(spp=4, samples_per_launch=2, bdpt_max_path_length=4)
+    bdpt.render(scene, cam, opts, 3)
+    assert bdpt._CAPTURED[id(scene)].graph is not None
+    before, draws = dict(K.LAUNCHES), rng.LAUNCHES
+    got = [bdpt.render(scene, cam, opts, 3, sample_base=b) for b in (0, 8)]
+    replayed = _launch_delta(before), rng.LAUNCHES - draws
+    monkeypatch.setattr(bdpt, "GRAPHS", False)
+    before, draws = dict(K.LAUNCHES), rng.LAUNCHES
+    want = [bdpt.render(scene, cam, opts, 3, sample_base=b) for b in (0, 8)]
+    eager = _launch_delta(before), rng.LAUNCHES - draws
+    assert replayed == eager and eager[0] == {near: 4 * 7, occ: 4}
+    assert eager[1] > 0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert not torch.equal(got[0], got[1])
+
+
+def test_bdpt_runs_eagerly_while_spans_record(dev):
+    """Under ``recording()`` a scene with a capture still renders eagerly,
+    so its spans see the wavefront; the capture goes with its scene; and
+    differentiable options never capture."""
+    import gc
+    from tuturenderer_tpu_torch.integrators import bdpt
+    (scene, cam), _ = _bdpt_scene(True, dev)
+    opts = RenderOptions(spp=2, samples_per_launch=2, bdpt_max_path_length=4)
+    bdpt.render(scene, cam, opts, 3)
+    key = id(scene)
+    assert bdpt._CAPTURED[key].graph is not None
+    with profiling.recording():
+        n0 = len(profiling.recorded())
+        bdpt.render(scene, cam, opts, 3)
+        names = [s.name for s in profiling.recorded()[n0:]]
+    assert names.count("bdpt.connect") == 1 and names.count("render") == 1
+    del scene
+    gc.collect()
+    assert key not in bdpt._CAPTURED
+    (scene, cam), _ = _bdpt_scene(True, dev)
+    bdpt.render(scene, cam, dataclasses.replace(opts, differentiable=True), 3)
+    assert id(scene) not in bdpt._CAPTURED
+
+
 @pytest.mark.parametrize("renderer,near,occ", [
     ("render_light_diff", 1, 2), ("render_bdpt_diff", 7, 1)])
 def test_light_and_bdpt_gradients_on_the_card(dev, renderer, near, occ):

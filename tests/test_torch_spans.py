@@ -15,21 +15,38 @@ the spans and counters at the port's layer boundaries, on a 16x12
   span open on the thread that waits for it;
 - the ``isect.nearest`` live-lane counts against
   ``trace_rays(collect_alive=True)``, bounce for bounce;
-- the first call of a unit recorded whole, and the buffer bounded.
+- the first call of a unit recorded whole, and the buffer bounded;
+- BDPT: a render its own ``render`` root, with ``bdpt.eye`` (7 nearest
+  queries), ``bdpt.light`` (6), ``bdpt.connect`` (``rays`` 27 N at length
+  7, ``live`` at most that and equal to its shadow query's) and
+  ``bdpt.splat`` (``splats`` equal to the splats that land on the film) a
+  wavefront, and its film bit-equal with recording on and off;
+- a scene build that makes cluster tables records ``tables.build``
+  (``triangles``, non-empty ``clusters``), a dense one does not, and
+  nothing of either is recorded while the recorder is off;
+- ``paused()`` (a CUDA graph's capture) records nothing inside a
+  recording and restores it after; ``recording_on()`` says where spans
+  record; a BDPT render on the CPU captures no graph, and the tensors a
+  capture keeps (``bdpt._leaves``) are every tensor of the scene and the
+  camera.
 """
 import collections
 import contextlib
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
 import torch_port_util  # noqa: F401  (one intra-op thread a process)
 from tuturenderer_tpu_torch import grad
 from tuturenderer_tpu_torch.camera import primary_ray
-from tuturenderer_tpu_torch.integrators import path
+from tuturenderer_tpu_torch.integrators import bdpt, path
+from tuturenderer_tpu_torch.integrators.light import splat_film
+from tuturenderer_tpu_torch.ops.cluster import build_clusters
 from tuturenderer_tpu_torch.options import RenderOptions
+from tuturenderer_tpu_torch.scene.data import SceneBuilder
 from tuturenderer_tpu_torch.scene.presets import simple_box
 from tuturenderer_tpu_torch.utils import profiling as P
 
@@ -305,3 +322,143 @@ def test_buffer_is_bounded_and_phases_are_spans(monkeypatch):
     assert len(got) == 4 and len(prof.records) == 3
     assert [s.name for s in got] == ["shade.hit", "scene build"] * 2
     assert got[-2].parent == got[-1].sid and got[-1].parent is None
+
+
+BDPT_OPTS = RenderOptions(spp=2, samples_per_launch=1, bdpt_max_path_length=7)
+
+
+def _bdpt_spans(box):
+    scene, cam = box
+    with P.recording():
+        img = bdpt.render(scene, cam, BDPT_OPTS, SEED)
+    return img, P.recorded()
+
+
+def test_bdpt_render_span_tree(box, rec):
+    _, spans = _bdpt_spans(box)
+    n = box[1].n_pixels
+    kids = _children(spans)
+    roots = [s for s in spans if s.parent is None]
+    assert [r.name for r in roots] == ["render"]
+    assert all(s.root == roots[0].sid for s in spans)
+    names = {s.name for s in spans}
+    assert {"bdpt.eye", "bdpt.light", "bdpt.connect", "bdpt.splat",
+            "isect.nearest", "isect.anyhit", "shade.bsdf",
+            "rng"} <= names
+    waves = BDPT_OPTS.spp // BDPT_OPTS.samples_per_launch
+    for name, queries in (("bdpt.eye", 7), ("bdpt.light", 6)):
+        got = [s for s in spans if s.name == name]
+        assert len(got) == waves and all(s.parent == roots[0].sid
+                                         for s in got)
+        for s in got:
+            assert [c.name for c in kids[s.sid]].count("isect.nearest") == \
+                queries
+    connects = [s for s in spans if s.name == "bdpt.connect"]
+    assert len(connects) == waves
+    for c in connects:
+        assert c.counts["rays"] == 27 * n
+        assert 0 < int(c.counts["live"]) <= c.counts["rays"]
+        shadow = [k for k in kids[c.sid] if k.name == "isect.anyhit"]
+        assert len(shadow) == 1
+        assert shadow[0].counts["lanes"] == c.counts["rays"]
+        assert int(shadow[0].counts["live"]) == int(c.counts["live"])
+    assert all(s.parent == roots[0].sid for s in spans
+               if s.name in ("bdpt.connect", "bdpt.splat"))
+    assert sum(self_ns(spans).values()) == roots[0].duration_ns
+
+
+def test_bdpt_splat_count_is_the_splats_on_the_film(box, rec, monkeypatch):
+    landed = []
+
+    def counting(film, idx, rgb):
+        landed.append(sum(int((i >= 0).sum()) for i in idx))
+        return splat_film(film, idx, rgb)
+    monkeypatch.setattr(bdpt, "splat_film", counting)
+    _, spans = _bdpt_spans(box)
+    splats = [int(s.counts["splats"]) for s in spans
+              if s.name == "bdpt.splat"]
+    assert splats == landed and sum(splats) > 0
+
+
+def test_bdpt_film_bit_equal_on_and_off(box, rec):
+    scene, cam = box
+    img_on, _ = _bdpt_spans(box)
+    img_off = bdpt.render(scene, cam, BDPT_OPTS, SEED)
+    assert torch.equal(img_on, img_off)
+
+
+def _mesh_builder(n_side: int = 12):
+    """A grid of 2 n_side^2 triangles and a light triangle above it ->
+    (builder, every triangle's corners)."""
+    b = SceneBuilder()
+    white = b.add_material(diffuse=(0.7, 0.7, 0.7))
+    light = b.add_material(emission=(5.0, 5.0, 5.0))
+    g = np.linspace(-1.0, 1.0, n_side + 1)
+    x0, z0 = np.meshgrid(g[:-1], g[:-1], indexing="ij")
+    x1, z1 = x0 + g[1] - g[0], z0 + g[1] - g[0]
+    corner = lambda x, z: np.stack([x, 0 * x, z], -1).reshape(-1, 3)
+    a, b_, c, d = corner(x0, z0), corner(x0, z1), corner(x1, z1), \
+        corner(x1, z0)
+    grid = np.concatenate([np.stack([a, b_, c], 1), np.stack([a, c, d], 1)])
+    lamp = np.array([[[-0.2, 1, -0.2], [0.2, 1, -0.2], [0.2, 1, 0.2]]])
+    b.add_triangles(grid, None, None, white)
+    b.add_triangles(lamp, None, None, light)
+    return b, np.concatenate([grid, lamp]).astype(np.float32)
+
+
+@pytest.mark.parametrize("use_bvh", [True, False])
+def test_tables_build_span_on_the_cluster_branch_only(rec, use_bvh):
+    b, verts = _mesh_builder()
+    with P.recording():
+        scene = b.build(use_bvh=use_bvh, device="cpu")
+    built = [s for s in P.recorded() if s.name == "tables.build"]
+    assert (scene.clusters is not None) == use_bvh
+    if not use_bvh:
+        assert built == []
+        return
+    assert len(built) == 1 and built[0].parent is None
+    tables = build_clusters(verts)
+    assert built[0].counts == {
+        "triangles": len(verts),
+        "clusters": int((tables["tri_idx"] >= 0).any(axis=1).sum())}
+    assert built[0].duration_ns > 0
+
+
+def test_bdpt_and_tables_record_nothing_off(box, rec):
+    scene, cam = box
+    bdpt.render(scene, cam, BDPT_OPTS, SEED)
+    _mesh_builder()[0].build(use_bvh=True, device="cpu")
+    assert P.recorded() == []
+    assert P.span("bdpt.connect") is P.OFF and P.span("tables.build") is P.OFF
+
+
+def test_paused_records_nothing_and_restores_the_recording(rec):
+    assert not P.recording_on()
+    with P.recording():
+        assert P.recording_on()
+        with P.paused():
+            assert not P.recording_on() and P.span("bdpt.connect") is P.OFF
+        assert P.recording_on()
+        with P.span("after"):
+            pass
+    assert not P.recording_on() and rec.depth == 0
+    assert [s.name for s in P.recorded()] == ["after"]
+
+
+def test_bdpt_on_the_cpu_captures_no_graph(box, rec):
+    scene, cam = box
+    before = dict(bdpt._CAPTURED)
+    bdpt.render(scene, cam, BDPT_OPTS, SEED)
+    with P.recording():
+        bdpt.render(scene, cam, BDPT_OPTS, SEED)
+    assert bdpt._CAPTURED == before and id(scene) not in bdpt._CAPTURED
+
+
+def test_bdpt_capture_keeps_every_tensor_of_scene_and_camera(box):
+    scene, cam = box
+    leaves = bdpt._leaves((scene, cam))
+    ids = {id(t) for t in leaves}
+    assert id(cam.world2raster) in ids and id(cam.position.x) in ids
+    assert id(scene.materials.diffuse.x) in ids and id(scene.eta) in ids
+    assert id(scene.diffuse_maps.rgb) in ids
+    assert all(isinstance(t, torch.Tensor) for t in leaves)

@@ -33,6 +33,26 @@ calls. Per launch that is ``bdpt_max_path_length`` eye steps and
 the default), and one shadow call. The JAX package sorts nothing here
 either: the stacked shadow rays go to the kernel in queue order.
 
+Under ``utils/profiling.py``'s spans, ``render`` is a unit (the path
+tracer's name), ``build_eye_path`` and ``build_light_path`` are
+``bdpt.eye`` and ``bdpt.light`` spans, the strategies of a wavefront (the
+MIS chains, the queued requests and their stacked material calls, the one
+shadow call) a ``bdpt.connect`` span that counts the queued connection
+rays (``rays``, K * N) and, while recording, the valid ones (``live``, a
+0-d device tensor), and the films' splats a ``bdpt.splat`` span that
+counts those that land on the film (``splats``, 0-d).
+
+On the card, ``render`` replays each wavefront from a CUDA graph
+(``utils/cuda_graph.py``): the ~22,300 launches of a 1,048,576-lane
+wavefront at length 7 would otherwise each be dispatched by the host,
+which then sets the pace. A scene keeps one capture, for one camera,
+options, seed and wavefront width; it is taken after an eager wavefront
+(which loads every kernel) and dropped with the scene. The image is the
+eager one's up to the order of the splats' atomic adds. A wavefront runs
+eagerly while spans record (a profiler, ``recording()``), so that they see
+every op; with ``differentiable`` options or a scene or camera tensor that
+requires grad; under ``GRAPHS = False``; and off the card.
+
 ``differentiable=True`` detaches what the JAX package stops: the sampled
 directions and their pdfs, the light sample's position, normal and area
 pdf, and every MIS weight; gradients flow through BSDF values, emission
@@ -40,6 +60,9 @@ and the geometry terms (``grad.render_bdpt_diff``).
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
+import weakref
 from typing import Dict, List
 
 import torch
@@ -51,7 +74,9 @@ from ..ops.intersect import intersect_core, occluded, shade_hit
 from ..ops.lights import light_pdf_of_hit, sample_cosine_dir, sample_light
 from ..options import EPSILON, MIN_DIVISOR, RenderOptions
 from ..scene.data import UNLIT
-from ..utils import rng
+from ..utils import cuda_graph, rng
+from ..utils.profiling import (_profiler_enabled, live_lanes, recording_on,
+                               span, spanned, unit)
 from ..utils.vec import Vec3, reflect, where as vwhere
 from .light import splat_film
 from .path import _detacher, _ones3, _zeros3, apply_textures
@@ -156,6 +181,7 @@ def _walk(scene, o, d, tp0: Vec3, lane, sample_idx, seed, opts,
     return verts
 
 
+@spanned("bdpt.eye")
 def build_eye_path(scene, cam: Camera, px, py, lane, sample_idx, seed,
                    opts: RenderOptions):
     """Camera vertex and its walk (the vertex set-up of integrate(),
@@ -194,6 +220,7 @@ def build_eye_path(scene, cam: Camera, px, py, lane, sample_idx, seed,
     return [cam_vert] + walk, pixel_pos
 
 
+@spanned("bdpt.light")
 def build_light_path(scene, cam: Camera, lane, sample_idx, seed,
                      opts: RenderOptions):
     """Light vertex and its adjoint walk (buildLightPath,
@@ -438,17 +465,25 @@ def render_sample_bdpt(scene, cam: Camera, px, py, lane, sample_idx, seed,
     """One BDPT sample per lane. Returns (estimate Vec3 [N], splat_idx
     list, splat_rgb list): the estimate goes to the lane's own pixel, each
     t=1 splat to its index (-1 for none)."""
-    n = lane.shape[0]
-    dev = lane.device
+    ep, pixel_pos = build_eye_path(scene, cam, px, py, lane, sample_idx,
+                                   seed, opts)
+    lp = build_light_path(scene, cam, lane, sample_idx, seed, opts)
+    we_pix, _ = importance_we(cam, pixel_pos)
+    with span("bdpt.connect") as sp:
+        return _connect(scene, cam, ep, lp, we_pix, opts, sp)
+
+
+def _connect(scene, cam: Camera, ep, lp, we_pix, opts: RenderOptions, sp):
+    """Every strategy of one wavefront from its two subpaths -> what
+    ``render_sample_bdpt`` returns; ``sp`` is the ``bdpt.connect`` span,
+    which counts the shadow rays."""
+    n = we_pix.shape[0]
+    dev = we_pix.device
     eta_scene = scene.eta
     types = scene.mtype_set
     # MIS weights are pdf ratios: piecewise-constant like every other
     # sampling decision
     sg = _detacher(opts)
-    ep, pixel_pos = build_eye_path(scene, cam, px, py, lane, sample_idx,
-                                   seed, opts)
-    lp = build_light_path(scene, cam, lane, sample_idx, seed, opts)
-    we_pix, _ = importance_we(cam, pixel_pos)
 
     estimate = _zeros3(n, dev)
     z3 = _zeros3(n, dev)
@@ -664,9 +699,12 @@ def render_sample_bdpt(scene, cam: Camera, px, py, lane, sample_idx, seed,
     if occl_o:
         cat = lambda vs: Vec3(*(torch.cat([getattr(v, c) for v in vs])
                                 for c in "xyz"))
+        live = torch.cat(occl_mask)
+        if sp.on:
+            sp.count("rays", live.shape[0])
+            sp.count("live", live_lanes(live))
         blocked_all = occluded(scene, cat(occl_o), cat(occl_d),
-                               torch.cat(occl_dist),
-                               mask=torch.cat(occl_mask))
+                               torch.cat(occl_dist), mask=live)
         blocked_rows = blocked_all.reshape(len(occl_o), n)
         for rec in pending:
             ok = rec['ok'] & ~blocked_rows[rec['q']]
@@ -694,27 +732,127 @@ def render(scene, cam: Camera, opts: RenderOptions, seed=0, sample_base=0):
     order. The film starts at the background colour and every estimate
     and splat accumulates on top of it (Camera.hpp:28, BDPT.hpp:891-897);
     NaN pixels become 0."""
+    with unit("render"):
+        return _render(scene, cam, opts, seed, sample_base)
+
+
+def _render(scene, cam: Camera, opts: RenderOptions, seed, sample_base):
     dev = scene.device
     p = cam.n_pixels
     sb = max(1, min(opts.samples_per_launch or 1, opts.spp))
     while opts.spp % sb:
         sb -= 1
-    lane = torch.arange(p, dtype=torch.int32, device=dev).repeat(sb)
-    px = lane % cam.width
-    py = lane // cam.width
-    soff = torch.arange(sb, dtype=torch.int32, device=dev) \
-        .repeat_interleave(p)
-    spp_inv = 1.0 / opts.spp
-
     film = torch.zeros((p + 1, 3), dtype=torch.float32, device=dev)
     film[:p] = torch.stack(tuple(scene.bkgcolor)).to(torch.float32)
+    graphs = GRAPHS and dev.type == "cuda" and not opts.differentiable \
+        and type(seed) is int and type(sample_base) is int
+    lanes = None
     for s in range(opts.spp // sb):
-        est, sidx, srgb = render_sample_bdpt(
-            scene, cam, px, py, lane, sample_base + s * sb + soff, seed,
-            opts)
-        film[:p] += torch.stack(
-            [c.reshape(sb, p).sum(dim=0) for c in est], -1) * spp_inv
-        film = splat_film(film, sidx, srgb)
+        first = sample_base + s * sb
+        cap = _CAPTURED.get(id(scene)) if graphs else None
+        if cap is not None and not cap.takes(cam, opts, seed, sb):
+            cap = None
+        if cap is not None and cap.replays() and not recording_on():
+            if film is not cap.film:
+                cap.film.copy_(film)
+                film = cap.film
+            cap.first.fill_(first)
+            cap.graph.replay()
+            continue
+        if lanes is None:
+            lanes = _lanes(cam, sb, dev)
+        lane, px, py, soff = lanes
+        film = _wavefront(scene, cam, opts, seed, film, lane, px, py,
+                          first + soff)
+        if graphs and cap is None and not _profiler_enabled():
+            _capture(scene, cam, opts, seed, sb)
     img = film[:p]
     img = torch.where(torch.isnan(img), 0.0, img)
     return img.reshape(cam.height, cam.width, 3)
+
+
+def _lanes(cam: Camera, sb: int, dev):
+    """(lane, px, py, sample offset) [sb * p] of a wavefront of ``sb``
+    samples a pixel."""
+    p = cam.n_pixels
+    lane = torch.arange(p, dtype=torch.int32, device=dev).repeat(sb)
+    soff = torch.arange(sb, dtype=torch.int32, device=dev) \
+        .repeat_interleave(p)
+    return lane, lane % cam.width, lane // cam.width, soff
+
+
+def _wavefront(scene, cam: Camera, opts: RenderOptions, seed, film, lane, px,
+               py, sample):
+    """``film`` [p + 1, 3] plus one wavefront's estimates (in place) and
+    splats (a new film)."""
+    p = cam.n_pixels
+    sb = lane.shape[0] // p
+    est, sidx, srgb = render_sample_bdpt(scene, cam, px, py, lane, sample,
+                                         seed, opts)
+    film[:p] += torch.stack([c.reshape(sb, p).sum(dim=0) for c in est],
+                            -1) * (1.0 / opts.spp)
+    with span("bdpt.splat") as sp:
+        if sp.on and sidx:
+            sp.count("splats", live_lanes(torch.cat(sidx) >= 0))
+        return splat_film(film, sidx, srgb)
+
+
+# ---------------------------------------------------------------- graphs
+
+GRAPHS = True       # False: every wavefront eager (tools that wrap kernels)
+_CAPTURED: Dict[int, "_Captured"] = {}     # id(scene) -> its capture
+
+
+def _leaves(obj) -> List[torch.Tensor]:
+    """The tensors of a scene or camera (dataclasses, tuples of them)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _leaves(v)]
+    return []
+
+
+class _Captured:
+    """One wavefront of ``_render`` for a scene, in a CUDA graph: replayed,
+    it adds the wavefront of the sample ids from ``first`` on to ``film``.
+    ``graph`` is None where the capture failed: that scene runs eagerly."""
+
+    def __init__(self, scene, cam: Camera, opts: RenderOptions, seed, sb):
+        self.key = (cam, opts, seed, sb)
+        self.leaves = _leaves((scene, cam))
+        dev = scene.device
+        self.film = torch.zeros((cam.n_pixels + 1, 3), dtype=torch.float32,
+                                device=dev)
+        self.first = torch.zeros((), dtype=torch.int32, device=dev)
+        self.graph = None
+        if any(t.requires_grad for t in self.leaves):
+            return
+        # a replay reads them where the capture found them: keep them
+        self.lanes = lane, px, py, soff = _lanes(cam, sb, dev)
+
+        def wavefront():
+            self.film.copy_(_wavefront(scene, cam, opts, seed, self.film,
+                                       lane, px, py, self.first + soff))
+        try:
+            self.graph = cuda_graph.Graph(wavefront, dev)
+        except RuntimeError as e:
+            warnings.warn(f"BDPT's wavefront did not capture in a CUDA graph "
+                          f"and runs eagerly: {e}")
+
+    def takes(self, cam: Camera, opts: RenderOptions, seed, sb) -> bool:
+        c, o, s, b = self.key
+        return c is cam and o == opts and s == seed and b == sb
+
+    def replays(self) -> bool:
+        return self.graph is not None and \
+            not any(t.requires_grad for t in self.leaves)
+
+
+def _capture(scene, cam: Camera, opts: RenderOptions, seed, sb) -> None:
+    """Replace the scene's capture (freeing the old one's memory first)."""
+    key = id(scene)
+    if _CAPTURED.pop(key, None) is None:
+        weakref.finalize(scene, _CAPTURED.pop, key, None)
+    _CAPTURED[key] = _Captured(scene, cam, opts, seed, sb)

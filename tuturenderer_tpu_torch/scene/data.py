@@ -16,7 +16,10 @@ Two ways in:
 From 4096 triangles up (or with ``use_bvh=True``) a scene carries cluster
 tables (``ops/cluster.py``), which its intersection then walks with the
 cluster kernels; smaller scenes are intersected densely. The JAX package
-also attaches an XLA BVH there (its CPU route); the port has none.
+also attaches an XLA BVH there (its CPU route); the port has none. The
+tables' build (``build_clusters`` and the BVH of ``clusters_from_numpy``)
+is a ``tables.build`` span of ``utils/profiling.py``, counting the
+``triangles`` and the non-empty ``clusters``.
 
 Both ways in build on the card unless ``device`` says otherwise.
 """
@@ -31,6 +34,7 @@ import torch
 from ..ops.cluster import (Clusters, build_clusters, clusters_from_numpy,
                            woop_rows)
 from ..utils.device import DEFAULT_DEVICE, resolve
+from ..utils.profiling import span
 from ..utils.vec import Vec3
 
 # material type enum (Material.hpp:9-16)
@@ -446,8 +450,13 @@ class SceneBuilder:
         if not use_bvh or verts.shape[0] == 0:
             return None
         alphas = np.asarray(self._mat['alpha'], np.float32)[tmat]
-        return clusters_from_numpy(build_clusters(verts, alphas=alphas),
-                                   device)
+        with span("tables.build") as sp:
+            tables = build_clusters(verts, alphas=alphas)
+            if sp.on:
+                sp.count("triangles", int(verts.shape[0]))
+                sp.count("clusters",
+                         int((tables["tri_idx"] >= 0).any(axis=1).sum()))
+            return clusters_from_numpy(tables, device)
 
 
 def _woop_arrays(verts: np.ndarray):

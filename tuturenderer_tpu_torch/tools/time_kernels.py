@@ -171,7 +171,9 @@ def capture(**picks):
     lane counts of that wrapper's calls so far, this one last. The yielded
     dict gets, for each label, the (table, ray columns [+ dist]) of the
     call its pick took; a label no call matched raises on exit. The calls
-    still go to the kernels and are counted as ever."""
+    still go to the kernels and are counted as ever. BDPT's wavefronts run
+    eagerly inside, so that every one makes its calls (no graph replays)."""
+    from tuturenderer_tpu_torch.integrators import bdpt
     from tuturenderer_tpu_torch.ops import intersect as I
     got = {name: {} for name in picks}
     orig = {name: getattr(I, name) for name in picks}
@@ -189,9 +191,11 @@ def capture(**picks):
 
     for name in picks:
         setattr(I, name, wrap(name))
+    graphs, bdpt.GRAPHS = bdpt.GRAPHS, False
     try:
         yield got
     finally:
+        bdpt.GRAPHS = graphs
         for name, fn in orig.items():
             setattr(I, name, fn)
     missed = [(n, label) for n, want in picks.items() for label in want

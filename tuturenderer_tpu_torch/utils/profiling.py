@@ -363,6 +363,24 @@ def recording():
         RECORDER.enable(-1)
 
 
+def recording_on() -> bool:
+    """True where a span would record: a profiler is active, or a
+    ``recording()`` block or a unit's first call is open."""
+    return bool(RECORDER.depth or _profiler_enabled())
+
+
+@contextlib.contextmanager
+def paused():
+    """Record no span inside the block, outside a profiler, whatever
+    records around it (a CUDA graph's capture: its launches run later)."""
+    with RECORDER._lock:
+        depth, RECORDER.depth = RECORDER.depth, 0
+    try:
+        yield
+    finally:
+        RECORDER.enable(depth)
+
+
 def recorded() -> List[SpanRecord]:
     """The closed spans the buffer holds, oldest first (a span closes
     after the spans inside it)."""
