@@ -32,7 +32,7 @@ from tuturenderer_tpu_torch.options import RenderOptions
 from tuturenderer_tpu_torch.scene.data import SceneBuilder
 from tuturenderer_tpu_torch.scene.presets import simple_box
 from tuturenderer_tpu_torch.tools import proto_visit as P
-from tuturenderer_tpu_torch.utils import profiling
+from tuturenderer_tpu_torch.utils import cuda_graph, profiling
 from tuturenderer_tpu_torch.utils import rng
 
 pytestmark = pytest.mark.gpu
@@ -539,18 +539,19 @@ def test_bdpt_goes_through_the_kernels(dev, mesh):
 @pytest.mark.parametrize("mesh", [False, True], ids=["dense", "cluster"])
 def test_bdpt_replays_its_wavefront_from_a_cuda_graph(dev, mesh, monkeypatch):
     """After a scene's first render, its wavefronts replay the captured
-    graph: the images equal the eager ones (``GRAPHS`` off) at two sample
-    bases within rtol 1e-5 / atol 1e-6 (the splats' atomic adds), and the
-    kernel and RNG launch counts of a replay are the eager wavefront's."""
+    graph: the images equal the eager ones (``cuda_graph.ON`` off) at two
+    sample bases within rtol 1e-5 / atol 1e-6 (the splats' atomic adds),
+    and the kernel and RNG launch counts of a replay are the eager
+    wavefront's."""
     from tuturenderer_tpu_torch.integrators import bdpt
     (scene, cam), (near, occ) = _bdpt_scene(mesh, dev)
     opts = RenderOptions(spp=4, samples_per_launch=2, bdpt_max_path_length=4)
     bdpt.render(scene, cam, opts, 3)
-    assert bdpt._CAPTURED[id(scene)].graph is not None
+    assert cuda_graph._CAPTURED[(id(scene), "bdpt")].graph is not None
     before, draws = dict(K.LAUNCHES), rng.LAUNCHES
     got = [bdpt.render(scene, cam, opts, 3, sample_base=b) for b in (0, 8)]
     replayed = _launch_delta(before), rng.LAUNCHES - draws
-    monkeypatch.setattr(bdpt, "GRAPHS", False)
+    monkeypatch.setattr(cuda_graph, "ON", False)
     before, draws = dict(K.LAUNCHES), rng.LAUNCHES
     want = [bdpt.render(scene, cam, opts, 3, sample_base=b) for b in (0, 8)]
     eager = _launch_delta(before), rng.LAUNCHES - draws
@@ -570,8 +571,8 @@ def test_bdpt_runs_eagerly_while_spans_record(dev):
     (scene, cam), _ = _bdpt_scene(True, dev)
     opts = RenderOptions(spp=2, samples_per_launch=2, bdpt_max_path_length=4)
     bdpt.render(scene, cam, opts, 3)
-    key = id(scene)
-    assert bdpt._CAPTURED[key].graph is not None
+    key = (id(scene), "bdpt")
+    assert cuda_graph._CAPTURED[key].graph is not None
     with profiling.recording():
         n0 = len(profiling.recorded())
         bdpt.render(scene, cam, opts, 3)
@@ -579,10 +580,106 @@ def test_bdpt_runs_eagerly_while_spans_record(dev):
     assert names.count("bdpt.connect") == 1 and names.count("render") == 1
     del scene
     gc.collect()
-    assert key not in bdpt._CAPTURED
+    assert key not in cuda_graph._CAPTURED
     (scene, cam), _ = _bdpt_scene(True, dev)
     bdpt.render(scene, cam, dataclasses.replace(opts, differentiable=True), 3)
-    assert id(scene) not in bdpt._CAPTURED
+    assert (id(scene), "bdpt") not in cuda_graph._CAPTURED
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["dense", "cluster"])
+@pytest.mark.parametrize("sb", [1, 4])
+def test_path_replays_its_wavefront_from_a_cuda_graph(dev, mesh, sb,
+                                                      monkeypatch):
+    """After a scene's first render, the path tracer's wavefronts replay
+    the captured graph: with jitter on, at two sample bases and 1 or 4
+    samples a wavefront, the images are bit-equal to the eager ones
+    (``cuda_graph.ON`` off), the kernel and RNG launch counts of a replay
+    are the eager wavefront's, and the counters tell replays from eager
+    wavefronts."""
+    from tuturenderer_tpu_torch.integrators import path
+    scene, cam = sphere_showcase(32, 24, nu=46, nv=46, device=dev) if mesh \
+        else simple_box(32, 24, device=dev)
+    opts = RenderOptions(spp=8, samples_per_launch=sb, max_depth=4,
+                         jitter=True)
+    path.render(scene, cam, opts, 3)
+    assert cuda_graph._CAPTURED[(id(scene), "path")].graph is not None
+    before, draws = dict(K.LAUNCHES), rng.LAUNCHES
+    replays, eager = cuda_graph.REPLAYED["path"], cuda_graph.EAGER["path"]
+    got = [path.render(scene, cam, opts, 3, sample_base=b) for b in (0, 8)]
+    replayed = _launch_delta(before), rng.LAUNCHES - draws
+    assert cuda_graph.REPLAYED["path"] - replays == 2 * 8 // sb
+    assert cuda_graph.EAGER["path"] == eager
+    monkeypatch.setattr(cuda_graph, "ON", False)
+    before, draws = dict(K.LAUNCHES), rng.LAUNCHES
+    want = [path.render(scene, cam, opts, 3, sample_base=b) for b in (0, 8)]
+    eager_counts = _launch_delta(before), rng.LAUNCHES - draws
+    assert cuda_graph.EAGER["path"] - eager == 2 * 8 // sb
+    assert replayed == eager_counts and eager_counts[1] > 0
+    assert sum(eager_counts[0].values()) == 2 * (8 // sb) * (6 + 5)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+    assert not torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["dense", "cluster"])
+def test_path_replays_compacted_wavefronts_bit_equal(dev, mesh,
+                                                     monkeypatch):
+    """Compacted options capture too: a replayed render under a schedule
+    that overflows equals the eager one bit for bit, its overflow count
+    included, and launches what it does."""
+    from tuturenderer_tpu_torch.integrators import path
+    scene, cam = sphere_showcase(64, 48, nu=46, nv=46, device=dev) if mesh \
+        else simple_box(64, 48, device=dev)
+    opts = RenderOptions(spp=4, samples_per_launch=2, max_depth=4,
+                         compaction=(1.0, 0.5, 0.25))
+    path.render(scene, cam, opts, 5)
+    assert cuda_graph._CAPTURED[(id(scene), "path")].graph is not None
+    before = dict(K.LAUNCHES)
+    got, st = path.render(scene, cam, opts, 5, sample_base=4, stats=True)
+    replayed = _launch_delta(before)
+    monkeypatch.setattr(cuda_graph, "ON", False)
+    before = dict(K.LAUNCHES)
+    want, wst = path.render(scene, cam, opts, 5, sample_base=4, stats=True)
+    assert replayed == _launch_delta(before)
+    assert int(st["compaction_overflow"]) == \
+        int(wst["compaction_overflow"]) > 0
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_path_runs_eagerly_with_its_queries_rebound(dev, monkeypatch):
+    """With ``intersect_core`` rebound (as the benchmark's traced-query
+    count does), a scene with a capture renders eagerly, so the wrapper
+    sees every query, and no capture of the wrapper is made; under
+    ``recording()`` the spans see each wavefront; the capture goes with
+    its scene."""
+    import gc
+    from tuturenderer_tpu_torch.integrators import path
+    scene, cam = simple_box(32, 24, device=dev)
+    opts = RenderOptions(spp=2, max_depth=3)
+    path.render(scene, cam, opts, 3)
+    key = (id(scene), "path")
+    cap = cuda_graph._CAPTURED[key]
+    assert cap.graph is not None
+    seen = []
+
+    def counting(*args, **kw):
+        seen.append(1)
+        return real(*args, **kw)
+    real = path.intersect_core
+    monkeypatch.setattr(path, "intersect_core", counting)
+    want = path.render(scene, cam, opts, 3)
+    assert len(seen) == 2 * (3 + 2) and cuda_graph._CAPTURED[key] is cap
+    monkeypatch.setattr(path, "intersect_core", real)
+    torch.testing.assert_close(path.render(scene, cam, opts, 3), want,
+                               rtol=0, atol=0)
+    with profiling.recording():
+        n0 = len(profiling.recorded())
+        path.render(scene, cam, opts, 3)
+        names = [s.name for s in profiling.recorded()[n0:]]
+    assert names.count("render.sample") == 2
+    del scene, cap
+    gc.collect()
+    assert key not in cuda_graph._CAPTURED
 
 
 @pytest.mark.parametrize("renderer,near,occ", [
@@ -812,10 +909,11 @@ def test_rng_kernel_raises_on_words_it_does_not_take(dev):
     assert rng.LAUNCHES == before
 
 
-def test_render_draws_through_the_rng_kernel(dev):
+def test_render_draws_through_the_rng_kernel(dev, monkeypatch):
     """Every draw of a render on the card goes through the kernel: each
     ``rng`` span's ``kernel`` count equals its ``draws``, one launch a
-    span; the image equals the plain hash's, bit for bit."""
+    span; the image equals the plain hash's, bit for bit (rendered
+    eagerly: a replay would run the kernel its capture saw)."""
     scene, cam = simple_box(32, 24, device=dev)
     opts = RenderOptions(spp=2, max_depth=3, jitter=True)
     before = rng.LAUNCHES
@@ -829,6 +927,7 @@ def test_render_draws_through_the_rng_kernel(dev):
     try:
         rng.uniform, rng.uniform_simple = (rng.uniform_plain,
                                            rng.uniform_simple_plain)
+        monkeypatch.setattr(cuda_graph, "ON", False)
         plain = render(scene, cam, opts, seed=1)
     finally:
         rng.uniform, rng.uniform_simple = real

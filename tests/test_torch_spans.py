@@ -27,7 +27,7 @@ the spans and counters at the port's layer boundaries, on a 16x12
 - ``paused()`` (a CUDA graph's capture) records nothing inside a
   recording and restores it after; ``recording_on()`` says where spans
   record; a BDPT render on the CPU captures no graph, and the tensors a
-  capture keeps (``bdpt._leaves``) are every tensor of the scene and the
+  capture keeps (``cuda_graph.leaves``) are every tensor of the scene and the
   camera.
 """
 import collections
@@ -48,6 +48,7 @@ from tuturenderer_tpu_torch.ops.cluster import build_clusters
 from tuturenderer_tpu_torch.options import RenderOptions
 from tuturenderer_tpu_torch.scene.data import SceneBuilder
 from tuturenderer_tpu_torch.scene.presets import simple_box
+from tuturenderer_tpu_torch.utils import cuda_graph
 from tuturenderer_tpu_torch.utils import profiling as P
 
 OPTS = RenderOptions(spp=2, max_depth=6, min_depth=3)
@@ -447,16 +448,17 @@ def test_paused_records_nothing_and_restores_the_recording(rec):
 
 def test_bdpt_on_the_cpu_captures_no_graph(box, rec):
     scene, cam = box
-    before = dict(bdpt._CAPTURED)
+    before = dict(cuda_graph._CAPTURED)
     bdpt.render(scene, cam, BDPT_OPTS, SEED)
     with P.recording():
         bdpt.render(scene, cam, BDPT_OPTS, SEED)
-    assert bdpt._CAPTURED == before and id(scene) not in bdpt._CAPTURED
+    assert cuda_graph._CAPTURED == before
+    assert (id(scene), "bdpt") not in cuda_graph._CAPTURED
 
 
 def test_bdpt_capture_keeps_every_tensor_of_scene_and_camera(box):
     scene, cam = box
-    leaves = bdpt._leaves((scene, cam))
+    leaves = cuda_graph.leaves((scene, cam))
     ids = {id(t) for t in leaves}
     assert id(cam.world2raster) in ids and id(cam.position.x) in ids
     assert id(scene.materials.diffuse.x) in ids and id(scene.eta) in ids

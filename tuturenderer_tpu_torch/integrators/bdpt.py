@@ -43,15 +43,12 @@ rays (``rays``, K * N) and, while recording, the valid ones (``live``, a
 counts those that land on the film (``splats``, 0-d).
 
 On the card, ``render`` replays each wavefront from a CUDA graph
-(``utils/cuda_graph.py``): the ~22,300 launches of a 1,048,576-lane
+(``utils/cuda_graph.py::run``): the ~22,300 launches of a 1,048,576-lane
 wavefront at length 7 would otherwise each be dispatched by the host,
-which then sets the pace. A scene keeps one capture, for one camera,
-options, seed and wavefront width; it is taken after an eager wavefront
-(which loads every kernel) and dropped with the scene. The image is the
-eager one's up to the order of the splats' atomic adds. A wavefront runs
-eagerly while spans record (a profiler, ``recording()``), so that they see
-every op; with ``differentiable`` options or a scene or camera tensor that
-requires grad; under ``GRAPHS = False``; and off the card.
+which then sets the pace. A scene's capture is keyed by the camera,
+options, seed and wavefront width; the rules for when a wavefront runs
+eagerly are ``run``'s. The image is the eager one's up to the order of the
+splats' atomic adds.
 
 ``differentiable=True`` detaches what the JAX package stops: the sampled
 directions and their pdfs, the light sample's position, normal and area
@@ -60,9 +57,6 @@ and the geometry terms (``grad.render_bdpt_diff``).
 """
 from __future__ import annotations
 
-import dataclasses
-import warnings
-import weakref
 from typing import Dict, List
 
 import torch
@@ -75,8 +69,7 @@ from ..ops.lights import light_pdf_of_hit, sample_cosine_dir, sample_light
 from ..options import EPSILON, MIN_DIVISOR, RenderOptions
 from ..scene.data import UNLIT
 from ..utils import cuda_graph, rng
-from ..utils.profiling import (_profiler_enabled, live_lanes, recording_on,
-                               span, spanned, unit)
+from ..utils.profiling import live_lanes, span, spanned, unit
 from ..utils.vec import Vec3, reflect, where as vwhere
 from .light import splat_film
 from .path import _detacher, _ones3, _zeros3, apply_textures
@@ -744,28 +737,16 @@ def _render(scene, cam: Camera, opts: RenderOptions, seed, sample_base):
         sb -= 1
     film = torch.zeros((p + 1, 3), dtype=torch.float32, device=dev)
     film[:p] = torch.stack(tuple(scene.bkgcolor)).to(torch.float32)
-    graphs = GRAPHS and dev.type == "cuda" and not opts.differentiable \
-        and type(seed) is int and type(sample_base) is int
-    lanes = None
-    for s in range(opts.spp // sb):
-        first = sample_base + s * sb
-        cap = _CAPTURED.get(id(scene)) if graphs else None
-        if cap is not None and not cap.takes(cam, opts, seed, sb):
-            cap = None
-        if cap is not None and cap.replays() and not recording_on():
-            if film is not cap.film:
-                cap.film.copy_(film)
-                film = cap.film
-            cap.first.fill_(first)
-            cap.graph.replay()
-            continue
-        if lanes is None:
-            lanes = _lanes(cam, sb, dev)
+
+    def step(outs, lanes, first):
         lane, px, py, soff = lanes
-        film = _wavefront(scene, cam, opts, seed, film, lane, px, py,
-                          first + soff)
-        if graphs and cap is None and not _profiler_enabled():
-            _capture(scene, cam, opts, seed, sb)
+        return (_wavefront(scene, cam, opts, seed, outs[0], lane, px, py,
+                           first + soff),)
+    (film,), _ = cuda_graph.run(
+        "bdpt", scene, cam, ((cam,), (opts, seed, sb)),
+        cuda_graph.eligible(dev, opts, seed, sample_base),
+        [sample_base + s * sb for s in range(opts.spp // sb)], (film,),
+        lambda: _lanes(cam, sb, dev), step)
     img = film[:p]
     img = torch.where(torch.isnan(img), 0.0, img)
     return img.reshape(cam.height, cam.width, 3)
@@ -795,64 +776,3 @@ def _wavefront(scene, cam: Camera, opts: RenderOptions, seed, film, lane, px,
         if sp.on and sidx:
             sp.count("splats", live_lanes(torch.cat(sidx) >= 0))
         return splat_film(film, sidx, srgb)
-
-
-# ---------------------------------------------------------------- graphs
-
-GRAPHS = True       # False: every wavefront eager (tools that wrap kernels)
-_CAPTURED: Dict[int, "_Captured"] = {}     # id(scene) -> its capture
-
-
-def _leaves(obj) -> List[torch.Tensor]:
-    """The tensors of a scene or camera (dataclasses, tuples of them)."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if dataclasses.is_dataclass(obj):
-        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
-    if isinstance(obj, (tuple, list)):
-        return [t for v in obj for t in _leaves(v)]
-    return []
-
-
-class _Captured:
-    """One wavefront of ``_render`` for a scene, in a CUDA graph: replayed,
-    it adds the wavefront of the sample ids from ``first`` on to ``film``.
-    ``graph`` is None where the capture failed: that scene runs eagerly."""
-
-    def __init__(self, scene, cam: Camera, opts: RenderOptions, seed, sb):
-        self.key = (cam, opts, seed, sb)
-        self.leaves = _leaves((scene, cam))
-        dev = scene.device
-        self.film = torch.zeros((cam.n_pixels + 1, 3), dtype=torch.float32,
-                                device=dev)
-        self.first = torch.zeros((), dtype=torch.int32, device=dev)
-        self.graph = None
-        if any(t.requires_grad for t in self.leaves):
-            return
-        # a replay reads them where the capture found them: keep them
-        self.lanes = lane, px, py, soff = _lanes(cam, sb, dev)
-
-        def wavefront():
-            self.film.copy_(_wavefront(scene, cam, opts, seed, self.film,
-                                       lane, px, py, self.first + soff))
-        try:
-            self.graph = cuda_graph.Graph(wavefront, dev)
-        except RuntimeError as e:
-            warnings.warn(f"BDPT's wavefront did not capture in a CUDA graph "
-                          f"and runs eagerly: {e}")
-
-    def takes(self, cam: Camera, opts: RenderOptions, seed, sb) -> bool:
-        c, o, s, b = self.key
-        return c is cam and o == opts and s == seed and b == sb
-
-    def replays(self) -> bool:
-        return self.graph is not None and \
-            not any(t.requires_grad for t in self.leaves)
-
-
-def _capture(scene, cam: Camera, opts: RenderOptions, seed, sb) -> None:
-    """Replace the scene's capture (freeing the old one's memory first)."""
-    key = id(scene)
-    if _CAPTURED.pop(key, None) is None:
-        weakref.finalize(scene, _CAPTURED.pop, key, None)
-    _CAPTURED[key] = _Captured(scene, cam, opts, seed, sb)

@@ -54,6 +54,19 @@ Under ``utils/profiling.py``'s spans, ``render`` is a unit with a
 ``bounce`` span a bounce (counting its depth; a checkpointed bounce opens
 it again when the backward pass recomputes it), ``bounce.epilogue`` and
 ``bounce.compact``; the queries, shading and draws inside open their own.
+
+On the card, ``render`` replays each wavefront from a CUDA graph
+(``utils/cuda_graph.py::run``, as BDPT does): the ~18,000 launches of a
+wavefront at max_depth 6 would otherwise each be dispatched by the host,
+which then sets the pace. A scene's capture is keyed by the camera,
+options, seed and samples a wavefront; it keeps the lane order and its
+inverse, so a replay builds neither. A wavefront runs eagerly under
+``run``'s rules, and also while the two query entry points
+(``intersect_core``, ``occluded``) are not the ones this module imported,
+so that a tool that wraps them (the benchmark's count of each query's live
+rays) sees every query: a capture and a replay run only this module's own.
+The image is the eager one's bit for bit (no atomics: the compaction
+flushes add once a film slot), compacted options included.
 """
 from __future__ import annotations
 
@@ -71,9 +84,13 @@ from ..ops.intersect import (intersect_core, occluded, shade_hit,
 from ..ops.lights import light_pdf_of_hit, sample_light
 from ..options import EPSILON, MIN_DIVISOR, RenderOptions
 from ..scene.data import (MICROFACET_T, PERFECT_REFLECTIVE, UNLIT, SceneData)
-from ..utils import rng
+from ..utils import cuda_graph, rng
 from ..utils.profiling import live_lanes, span, spanned, unit
 from ..utils.vec import Vec3, reflect, where as vwhere
+
+# the bounce loop's query entry points as imported: while a tool rebinds
+# them (to count each query), wavefronts run eagerly, calling its wrappers
+_QUERIES = (intersect_core, occluded)
 
 # lane provenance at loop top (what produced the current ray)
 FROM_CAMERA = 0
@@ -791,32 +808,43 @@ def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
 def _render(scene, cam, opts, seed, sample_base, stats):
     dev = scene.device
     p = cam.n_pixels
-    order_np = _block_order(cam.width, cam.height)
-    order = torch.from_numpy(order_np).to(dev)
-    # the film accumulates in lane order and unpermutes once at the end
-    inv_order = torch.from_numpy(np.argsort(order_np)).to(dev)
     sb = max(1, min(opts.samples_per_launch or 1, opts.spp))
     while opts.spp % sb:
         sb -= 1
-    pix = order.repeat(sb)                         # [p*sb] pixel id per lane
-    px = pix % cam.width
-    py = pix // cam.width
-    soff = torch.arange(sb, dtype=torch.int32, device=dev) \
-        .repeat_interleave(p)
 
-    acc = [torch.zeros((p * sb,), dtype=torch.float32, device=dev)
-           for _ in range(3)]
-    over = torch.zeros((), dtype=torch.int32, device=dev)
-    for s in range(opts.spp // sb):
-        L, dropped = render_sample(scene, cam, px, py, pix,
-                                   sample_base + s * sb + soff, seed, opts,
-                                   collect_overflow=True)
-        acc = [acc[0] + L.x, acc[1] + L.y, acc[2] + L.z]
-        over = over + dropped
+    def step(outs, lanes, first):
+        pix, px, py, soff, _ = lanes
+        L, dropped = render_sample(scene, cam, px, py, pix, first + soff,
+                                   seed, opts, collect_overflow=True)
+        ax, ay, az, over = outs
+        return ax + L.x, ay + L.y, az + L.z, over + dropped
+    zero = torch.zeros((p * sb,), dtype=torch.float32, device=dev)
+    (*acc, over), lanes = cuda_graph.run(
+        "path", scene, cam, ((cam,), (opts, seed, sb)),
+        cuda_graph.eligible(dev, opts, seed, sample_base) and
+        (intersect_core, occluded) == _QUERIES,
+        [sample_base + s * sb for s in range(opts.spp // sb)],
+        (zero, zero, zero, torch.zeros((), dtype=torch.int32, device=dev)),
+        lambda: _lanes(cam, sb, dev), step)
     inv = 1.0 / opts.spp
     img = torch.stack([a.reshape(sb, p).sum(dim=0) * inv for a in acc],
                       dim=-1)
-    img = img[inv_order.long()].reshape(cam.height, cam.width, 3)
+    # the film accumulates in lane order and unpermutes once at the end
+    img = img[lanes[4]].reshape(cam.height, cam.width, 3)
     if stats:
-        return img, {"compaction_overflow": over}
+        # a capture's count is overwritten by its next replay
+        return img, {"compaction_overflow": over.clone()}
     return img
+
+
+def _lanes(cam: Camera, sb: int, dev):
+    """(pixel id, px, py, sample offset) [sb * p] of a wavefront of ``sb``
+    samples a pixel in 32x32 block order, and the inverse of that order
+    [p] (int64)."""
+    p = cam.n_pixels
+    order_np = _block_order(cam.width, cam.height)
+    pix = torch.from_numpy(order_np).to(dev).repeat(sb)
+    soff = torch.arange(sb, dtype=torch.int32, device=dev) \
+        .repeat_interleave(p)
+    inv_order = torch.from_numpy(np.argsort(order_np)).to(dev)
+    return pix, pix % cam.width, pix // cam.width, soff, inv_order

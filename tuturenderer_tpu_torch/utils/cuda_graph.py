@@ -11,10 +11,26 @@ The port counts its kernels' launches in Python
 (``ops/cuda/intersect.py::LAUNCHES``, ``utils/rng.py::LAUNCHES``), and a
 replay runs no Python. So the capture, which launches nothing, takes back
 what it counted, and each replay adds it. No span records while capturing.
+
+``run`` drives the wavefronts of one render of an integrator (the path
+tracer's ``"path"``, BDPT's ``"bdpt"``) over this: a scene keeps one
+capture an integrator, for one key (the camera and whatever else a
+wavefront's launches depend on, ``ops/intersect.py``'s ``DENSE_KERNEL``
+among them), taken after an eager wavefront, which
+loads every kernel, and dropped with the scene. A wavefront runs eagerly
+while spans record (a profiler, ``recording()``), so that they see every
+op; where the caller rules graphs out (off the card, ``differentiable``
+options, a seed or sample base that is not an int: ``eligible``); where a
+scene or camera tensor requires grad; where the capture failed; and under
+``ON = False``. ``REPLAYED`` and ``EAGER`` count the wavefronts each
+integrator replayed and ran eagerly.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+import warnings
+import weakref
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -77,3 +93,118 @@ class Graph:
         kernels, draws = _counts()
         _set(({k: kernels.get(k, 0) + n for k, n in self.launches[0].items()},
               draws + self.launches[1]))
+
+
+# ------------------------------------------------------- captured wavefronts
+
+ON = True           # False: every wavefront eager (tools that wrap kernels)
+REPLAYED = {"path": 0, "bdpt": 0}     # wavefronts replayed, by integrator
+EAGER = {"path": 0, "bdpt": 0}        # wavefronts run eagerly, by integrator
+_CAPTURED: Dict[Tuple[int, str], "Captured"] = {}  # (id(scene), integrator)
+
+# (objects compared by identity, values compared by ==)
+Key = Tuple[tuple, tuple]
+
+
+def eligible(dev, opts, seed, sample_base) -> bool:
+    """Whether a render's wavefronts may replay at all: on the card, with
+    the switch on, options that are not ``differentiable``, and a seed and
+    sample base that are ints (a capture keys its seed as a value)."""
+    return ON and dev.type == "cuda" and not opts.differentiable and \
+        type(seed) is int and type(sample_base) is int
+
+
+def leaves(obj) -> List[torch.Tensor]:
+    """The tensors of a scene or camera (dataclasses, tuples of them)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in leaves(v)]
+    return []
+
+
+class Captured:
+    """One wavefront of integrator ``name`` for a scene, in a CUDA graph:
+    replayed, it adds the wavefront of the sample ids from ``first`` on to
+    ``outs`` (tensors shaped as the ``outs`` it was made with), reading the
+    ``lanes`` it keeps. ``graph`` is None where the capture failed or a
+    scene or camera tensor requires grad: that scene runs eagerly."""
+
+    def __init__(self, name: str, scene, cam, key: Key, outs, lanes, step):
+        self.key = key
+        self.leaves = leaves((scene, cam))
+        self.outs = tuple(torch.zeros_like(o) for o in outs)
+        self.first = torch.zeros((), dtype=torch.int32, device=scene.device)
+        self.graph = None
+        if any(t.requires_grad for t in self.leaves):
+            return
+        # a replay reads them where the capture found them: keep them
+        self.lanes = lanes()
+
+        def wavefront():
+            for mine, new in zip(self.outs,
+                                 step(self.outs, self.lanes, self.first)):
+                mine.copy_(new)
+        try:
+            self.graph = Graph(wavefront, scene.device)
+        except RuntimeError as e:
+            warnings.warn(f"{name}'s wavefront did not capture in a CUDA "
+                          f"graph and runs eagerly: {e}")
+
+    def takes(self, key: Key) -> bool:
+        (objs, values), (mine, my_values) = key, self.key
+        return len(objs) == len(mine) and \
+            all(a is b for a, b in zip(objs, mine)) and values == my_values
+
+    def replays(self) -> bool:
+        return self.graph is not None and \
+            not any(t.requires_grad for t in self.leaves)
+
+
+def run(name: str, scene, cam, key: Key, graphs: bool, firsts, outs,
+        lanes: Callable, step: Callable):
+    """The wavefronts of one render: ``outs = step(outs, lanes, first)``
+    for each sample id ``first`` in ``firsts`` (an int, or the capture's
+    0-d device tensor), each eager or a replay of the scene's capture
+    where ``graphs`` holds, its key is ``key`` and no span records.
+    ``lanes()`` makes what ``step`` reads besides (once a render, and once
+    more for a capture, which keeps its own). After an eager wavefront with
+    ``graphs``, no capture of ``key`` and no profiler, a capture of ``key``
+    replaces the scene's. Returns (outs, lanes): a capture's own where
+    every wavefront replayed."""
+    from ..ops import intersect
+    # the dense form names the kernels a wavefront launches
+    key = (key[0], key[1] + (intersect.DENSE_KERNEL,))
+    made = cap = None
+    for first in firsts:
+        cap = _CAPTURED.get((id(scene), name)) if graphs else None
+        if cap is not None and not cap.takes(key):
+            cap = None
+        if cap is not None and cap.replays() and \
+                not profiling.recording_on():
+            if outs is not cap.outs:
+                for mine, o in zip(cap.outs, outs):
+                    mine.copy_(o)
+                outs = cap.outs
+            cap.first.fill_(first)
+            cap.graph.replay()
+            REPLAYED[name] += 1
+            continue
+        if made is None:
+            made = lanes()
+        outs = step(outs, made, first)
+        EAGER[name] += 1
+        if graphs and cap is None and not profiling._profiler_enabled():
+            _capture(name, scene, cam, key, outs, lanes, step)
+    return outs, made if made is not None else cap.lanes
+
+
+def _capture(name: str, scene, cam, key: Key, outs, lanes, step) -> None:
+    """Replace the scene's capture of ``name`` (freeing the old one's
+    memory first)."""
+    k = (id(scene), name)
+    if _CAPTURED.pop(k, None) is None:
+        weakref.finalize(scene, _CAPTURED.pop, k, None)
+    _CAPTURED[k] = Captured(name, scene, cam, key, outs, lanes, step)
