@@ -35,6 +35,7 @@ from torch_port_util import (GRAD_CASES, GRAD_LEAVES, GRAD_REFS, GRAD_SEED,
 from tuturenderer_tpu.grad import get_params as j_get_params
 from tuturenderer_tpu_torch import grad as G
 from tuturenderer_tpu_torch.camera import camera_from_numpy, make_camera
+from tuturenderer_tpu_torch.integrators.bdpt import render as bdpt_render
 from tuturenderer_tpu_torch.integrators.path import render
 from tuturenderer_tpu_torch.models.scenes import sphere_showcase
 from tuturenderer_tpu_torch.ops import intersect as TI
@@ -151,19 +152,25 @@ def test_params_from_numpy_takes_jax_params():
 
 # ------------------------------------------------ the port on its own
 
-def test_render_diff_forward_is_render():
-    """The forward value of render_diff is the render of the same seed:
-    bit-equal one sample per batch; to rounding with two (the per-batch
-    sums add in another order)."""
+@pytest.mark.parametrize("name,sb", [("path", 1), ("path", 2),
+                                     ("bdpt", 1), ("bdpt", 2)])
+def test_render_diff_forward_is_render(name, sb):
+    """The forward value of a differentiable render is the render of the
+    same seed bit for bit, at one or two samples a wavefront: the two run
+    one schedule with the same accumulators (``integrators/frame.py``)."""
     scene, cam = _port_case("diffuse-mis")
-    for opts in (_opts("diffuse-mis"), _opts("ggx-nee")):
+    if name == "path":
+        fn, ren = G.render_diff, render
+        cases = [_opts("diffuse-mis", spp=4, samples_per_launch=2)] \
+            if sb == 2 else [_opts("diffuse-mis"), _opts("ggx-nee")]
+    else:
+        fn, ren = G.render_bdpt_diff, bdpt_render
+        cases = [RenderOptions(spp=4, samples_per_launch=sb,
+                               bdpt_max_path_length=3)]
+    for opts in cases:
         torch.testing.assert_close(
-            G.render_diff(G.get_params(scene), scene, cam, opts, 3),
-            render(scene, cam, opts, seed=3), rtol=0, atol=0)
-    opts = _opts("diffuse-mis", spp=4, samples_per_launch=2)
-    torch.testing.assert_close(
-        G.render_diff(G.get_params(scene), scene, cam, opts, 3),
-        render(scene, cam, opts, seed=3), rtol=1e-5, atol=1e-6)
+            fn(G.get_params(scene), scene, cam, opts, 3),
+            ren(scene, cam, opts, seed=3), rtol=0, atol=0)
 
 
 def test_put_params_refreshes_light_emission():

@@ -13,6 +13,10 @@ low-bias estimate for roughness under full MIS (``tests/test_grad.py``).
 The forward pass of each keeps nothing of its samples, and the backward
 pass replays one sample batch at a time, so memory stays O(1) in spp.
 
+The path tracer and BDPT go through ``_RenderDiff``, which drives the
+integrator's frame (``integrators/frame.py``) as ``render`` does, so the
+forward image is ``render``'s bit for bit at any ``samples_per_launch``.
+
 The material table is gathered per lane by plain indexing, whose autograd
 backward is the scatter-add the JAX package writes as a custom VJP.
 
@@ -31,10 +35,10 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .integrators.bdpt import render_sample_bdpt
+from .integrators.bdpt import BDPTFrame
 from .integrators.light import (_slot, compose_light_film, splat_film,
                                 trace_sample)
-from .integrators.path import _block_order, render_sample
+from .integrators.path import PathFrame, render_sample
 from .options import RenderOptions
 from .scene.data import TRIANGLE, SceneData
 from .utils.device import DEFAULT_DEVICE, resolve
@@ -106,131 +110,81 @@ def put_params(scene: SceneData, p: MaterialParams) -> SceneData:
     return scene
 
 
-class _Frame:
-    """What one differentiable render needs besides the parameters: the
-    lane layout of ``render`` (32x32 screen blocks, ``samples_per_launch``
-    spp per wavefront) and how the per-pixel sums become the image."""
-
-    def __init__(self, scene: SceneData, cam: Camera, opts: RenderOptions,
-                 seed):
-        self.scene, self.cam, self.seed = scene, cam, seed
-        self.opts = dataclasses.replace(opts, differentiable=True)
-        dev = scene.device
-        self.p = cam.n_pixels
-        order_np = _block_order(cam.width, cam.height)
-        self.inv_order = torch.from_numpy(np.argsort(order_np)).to(dev) \
-            .long()
-        sb = max(1, min(self.opts.samples_per_launch or 1, self.opts.spp))
-        while self.opts.spp % sb:
-            sb -= 1
-        self.sb = sb
-        self.pix = torch.from_numpy(order_np).to(dev).repeat(sb)
-        self.soff = torch.arange(sb, dtype=torch.int32, device=dev) \
-            .repeat_interleave(self.p)
-
-    @property
-    def batches(self) -> int:
-        return self.opts.spp // self.sb
-
-    def batch(self, leaves, s: int):
-        """The per-pixel radiance sums [3, p] of sample batch ``s`` at the
-        parameters ``leaves`` (lane order)."""
-        scene = put_params(self.scene, MaterialParams.from_leaves(leaves))
-        px = self.pix % self.cam.width
-        py = self.pix // self.cam.width
-        L = render_sample(scene, self.cam, px, py, self.pix,
-                          s * self.sb + self.soff, self.seed, self.opts)
-        return torch.stack([c.reshape(self.sb, self.p).sum(0) for c in L])
-
-    def image(self, acc: torch.Tensor) -> torch.Tensor:
-        """[3, p] sums over every sample -> the [H, W, 3] image."""
-        img = (acc * (1.0 / self.opts.spp)).T
-        return img[self.inv_order].reshape(self.cam.height, self.cam.width, 3)
-
-
-class _BDPTFrame(_Frame):
-    """``render_bdpt_diff``'s lanes: one lane per pixel in plain pixel
-    order, one sample a batch. A batch is the sample's estimates over spp
-    plus its t=1 splats, which carry 1/spp already; the image adds the
-    background under every pixel and sets NaN to 0 (``integrators/
-    bdpt.render``)."""
-
-    def __init__(self, scene: SceneData, cam: Camera, opts: RenderOptions,
-                 seed):
-        self.scene, self.cam, self.seed = scene, cam, seed
-        self.opts = dataclasses.replace(opts, differentiable=True)
-        self.p = cam.n_pixels
-        self.sb = 1
-        self.lane = torch.arange(self.p, dtype=torch.int32,
-                                 device=scene.device)
-
-    def batch(self, leaves, s: int):
-        scene = put_params(self.scene, MaterialParams.from_leaves(leaves))
-        est, sidx, srgb = render_sample_bdpt(
-            scene, self.cam, self.lane % self.cam.width,
-            self.lane // self.cam.width, self.lane, s, self.seed, self.opts)
-        film = torch.cat([torch.stack(tuple(est), -1) * (1.0 / self.opts.spp),
-                          torch.zeros((1, 3), device=self.lane.device)])
-        return splat_film(film, sidx, srgb)[:self.p].T
-
-    def image(self, acc: torch.Tensor) -> torch.Tensor:
-        img = acc.T + torch.stack(tuple(self.scene.bkgcolor))
-        img = torch.where(torch.isnan(img), 0.0, img)
-        return img.reshape(self.cam.height, self.cam.width, 3)
-
-
 class _RenderDiff(torch.autograd.Function):
-    """The image as a function of the eight parameter leaves. The forward
-    pass renders batch after batch and keeps only their per-pixel sum; the
-    backward pass replays one batch at a time with autograd on and takes its
-    vector-Jacobian product, so memory is that of one batch whatever the
-    spp: the JAX package's ``jax.checkpoint`` inside ``lax.scan``. Each
-    bounce of a path-tracer replay is checkpointed again
-    (``integrators/path.py``), so a batch's backward holds one bounce's
-    intermediates at a time."""
+    """The image of an integrator's frame (``integrators/frame.py``) as a
+    function of the eight parameter leaves. The forward pass steps the
+    frame's batches from ``render``'s accumulators and keeps only them,
+    so its image is ``render``'s bit for bit; the backward pass steps one
+    batch at a time again, from new accumulators, and takes its
+    vector-Jacobian product against the image's gradient with respect to
+    the accumulators: memory is one batch's whatever the spp (the JAX
+    package's ``jax.checkpoint`` inside ``lax.scan``), and one bounce's,
+    as each bounce is checkpointed again (``integrators/path.py``)."""
 
     @staticmethod
-    def forward(ctx, frame: _Frame, *leaves):
-        ctx.frame = frame
+    def forward(ctx, frame, *leaves):
+        lanes = frame.lanes()
         with span("replay.forward"):
-            acc = sum(frame.batch(leaves, s) for s in range(frame.batches))
-        ctx.save_for_backward(acc, *leaves)
-        return frame.image(acc)
+            scene = put_params(frame.scene, MaterialParams.from_leaves(leaves))
+            outs = frame.accumulators()
+            for first in frame.firsts:
+                outs = frame.step(scene, outs, lanes, first)
+        ctx.frame, ctx.lanes, ctx.outs = frame, lanes, outs
+        ctx.save_for_backward(*leaves)
+        return frame.image(outs, lanes)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_img):
-        frame = ctx.frame
-        acc, *leaves = ctx.saved_tensors
-        # the image is linear in the sum but for BDPT's NaN mask, which the
-        # forward's sum decides
+        frame, lanes, leaves = ctx.frame, ctx.lanes, ctx.saved_tensors
+        # the image is linear in the accumulators but for BDPT's NaN mask,
+        # which the forward's decide (the overflow count is an integer)
         with torch.enable_grad():
-            acc = acc.detach().requires_grad_(True)
-            grad_acc, = torch.autograd.grad(frame.image(acc), acc, grad_img)
+            outs = [o.detach().requires_grad_(o.is_floating_point())
+                    for o in ctx.outs]
+            grad_acc = torch.autograd.grad(
+                frame.image(outs, lanes), [o for o in outs if o.requires_grad],
+                grad_img)
         grads = [torch.zeros_like(a) for a in leaves]
-        for s in range(frame.batches):
+        for first in frame.firsts:
             with torch.enable_grad():
                 copies = [a.detach().requires_grad_(True) for a in leaves]
                 with span("replay.batch"):
-                    out = frame.batch(copies, s)
+                    scene = put_params(frame.scene,
+                                       MaterialParams.from_leaves(copies))
+                    out = frame.step(scene, frame.accumulators(), lanes,
+                                     first)
                 with span("replay.grad"):
-                    got = torch.autograd.grad(out, copies, grad_acc,
-                                              allow_unused=True)
+                    got = torch.autograd.grad(
+                        [o for o in out if o.is_floating_point()], copies,
+                        grad_acc, allow_unused=True)
             grads = [g if d is None else g + d for g, d in zip(grads, got)]
         return (None, *grads)
 
 
+class _PathFrame(PathFrame):
+    """``PathFrame`` sampling through this module's ``render_sample``, which
+    the benchmark's planted faults rebind (``portbench/tests/``)."""
+    sample = staticmethod(lambda *args, **kw: render_sample(*args, **kw))
+
+
+def frame_image(frame_cls, params: MaterialParams, scene: SceneData,
+                cam: Camera, opts: RenderOptions, seed=0, **tile):
+    """``_RenderDiff`` at ``params`` of the ``frame_cls`` frame of a render
+    with ``opts`` made ``differentiable`` (``tile``: ``Frame``'s
+    ``pixels``, ``stride`` and ``offset``)."""
+    opts = dataclasses.replace(opts, differentiable=True)
+    return _RenderDiff.apply(frame_cls(scene, cam, opts, seed, **tile),
+                             *params.leaves())
+
+
 def render_diff(params: MaterialParams, scene: SceneData, cam: Camera,
                 opts: RenderOptions, seed=0) -> torch.Tensor:
-    """Differentiable full-frame render -> [H, W, 3].
-
-    Lanes go in 32x32 screen-block order and ``opts.samples_per_launch``
-    spp share one wavefront, as in ``render``; the per-pixel sums are those
-    of the one-sample schedule. The backward pass replays one sample batch
-    at a time (the path-replay backward pass), so memory stays O(1) in
-    spp."""
-    return _RenderDiff.apply(_Frame(scene, cam, opts, seed),
-                             *params.leaves())
+    """Differentiable full-frame render -> [H, W, 3], on ``render``'s
+    schedule (``PathFrame``), so its image is ``render``'s bit for bit. The
+    backward pass replays one sample batch at a time (the path-replay
+    backward pass), so memory stays O(1) in spp."""
+    return frame_image(_PathFrame, params, scene, cam, opts, seed)
 
 
 class _LightDiff(torch.autograd.Function):
@@ -364,11 +318,11 @@ def render_bdpt_diff(params: MaterialParams, scene: SceneData, cam: Camera,
     and the t=1 splats both differentiate; MIS weights and every sampling
     decision are detached (``integrators/bdpt.py``), so gradients flow
     through the two subpaths' BSDF values, emission and the connection
-    geometry terms. One sample of every pixel a pass, in plain pixel
-    order, as the JAX package's ``lax.scan``; the backward pass replays one
-    sample at a time (``_RenderDiff``), memory O(1) in spp."""
-    return _RenderDiff.apply(_BDPTFrame(scene, cam, opts, seed),
-                             *params.leaves())
+    geometry terms. The schedule is ``bdpt.render``'s (``BDPTFrame``,
+    ``samples_per_launch`` samples a wavefront), so the image is its bit
+    for bit; the backward pass replays one batch at a time
+    (``_RenderDiff``), memory O(1) in spp."""
+    return frame_image(BDPTFrame, params, scene, cam, opts, seed)
 
 
 def image_loss_and_grad(params: MaterialParams, target: torch.Tensor,

@@ -42,13 +42,14 @@ rays (``rays``, K * N) and, while recording, the valid ones (``live``, a
 0-d device tensor), and the films' splats a ``bdpt.splat`` span that
 counts those that land on the film (``splats``, 0-d).
 
-On the card, ``render`` replays each wavefront from a CUDA graph
+``BDPTFrame`` is the schedule of a render (``integrators/frame.py``),
+which ``render`` and ``grad.render_bdpt_diff`` run. On the card,
+``render`` replays each wavefront from a CUDA graph
 (``utils/cuda_graph.py::run``): the ~22,300 launches of a 1,048,576-lane
 wavefront at length 7 would otherwise each be dispatched by the host,
-which then sets the pace. A scene's capture is keyed by the camera,
-options, seed and wavefront width; the rules for when a wavefront runs
-eagerly are ``run``'s. The image is the eager one's up to the order of the
-splats' atomic adds.
+which then sets the pace. The rules for when a wavefront runs eagerly are
+``run``'s. The image is the eager one's up to the order of the splats'
+atomic adds.
 
 ``differentiable=True`` detaches what the JAX package stops: the sampled
 directions and their pdfs, the light sample's position, normal and area
@@ -71,6 +72,7 @@ from ..scene.data import UNLIT
 from ..utils import cuda_graph, rng
 from ..utils.profiling import live_lanes, span, spanned, unit
 from ..utils.vec import Vec3, reflect, where as vwhere
+from .frame import Frame
 from .light import splat_film
 from .path import _detacher, _ones3, _zeros3, apply_textures
 
@@ -713,66 +715,52 @@ def _connect(scene, cam: Camera, ep, lp, we_pix, opts: RenderOptions, sp):
     return estimate, splat_idx, splat_rgb
 
 
+class BDPTFrame(Frame):
+    """BDPT's schedule, over the whole film: lanes in plain pixel order;
+    one accumulator, the film [p + 1, 3] (slot ``p`` takes the off-film
+    splats), starting at the background colour under every pixel
+    (Camera.hpp:28, BDPT.hpp:891-897); a step adds a wavefront's estimates
+    times 1/spp and its splats, which carry it already; the image is the
+    film with NaN pixels set to 0."""
+
+    name = "bdpt"
+
+    def accumulators(self):
+        p = self.cam.n_pixels
+        film = torch.zeros((p + 1, 3), dtype=torch.float32,
+                           device=self.scene.device)
+        film[:p] = torch.stack(tuple(self.scene.bkgcolor)).to(torch.float32)
+        return (film,)
+
+    def step(self, scene, outs, lanes, first):
+        film, = outs
+        p = self.cam.n_pixels
+        est, sidx, srgb = render_sample_bdpt(
+            scene, self.cam, lanes.px, lanes.py, lanes.pix,
+            first + lanes.soff, self.seed, self.opts)
+        film[:p] += torch.stack([c.reshape(self.sb, p).sum(dim=0)
+                                 for c in est], -1) * (1.0 / self.opts.spp)
+        with span("bdpt.splat") as sp:
+            if sp.on and sidx:
+                sp.count("splats", live_lanes(torch.cat(sidx) >= 0))
+            return (splat_film(film, sidx, srgb),)
+
+    def image(self, outs, lanes):
+        img = outs[0][:self.cam.n_pixels]
+        img = torch.where(torch.isnan(img), 0.0, img)
+        return img.reshape(self.cam.height, self.cam.width, 3)
+
+
 def render(scene, cam: Camera, opts: RenderOptions, seed=0, sample_base=0):
     """Full-frame render -> [H, W, 3] linear radiance on the scene's device.
     ``sample_base`` shifts the global sample indices so chunked renders
     continue the exact stream.
 
-    Lanes go in plain pixel order (not the path tracer's 32x32 blocks), and
     ``opts.samples_per_launch`` > 1 batches that many spp into one
-    wavefront (lane = (sample, pixel)): the RNG is keyed by (pixel,
-    sample), so the image is that of the one-sample schedule up to float
-    order. The film starts at the background colour and every estimate
-    and splat accumulates on top of it (Camera.hpp:28, BDPT.hpp:891-897);
-    NaN pixels become 0."""
+    wavefront (``BDPTFrame``): the RNG is keyed by (pixel, sample), so the
+    image is that of the one-sample schedule up to float order."""
     with unit("render"):
-        return _render(scene, cam, opts, seed, sample_base)
-
-
-def _render(scene, cam: Camera, opts: RenderOptions, seed, sample_base):
-    dev = scene.device
-    p = cam.n_pixels
-    sb = max(1, min(opts.samples_per_launch or 1, opts.spp))
-    while opts.spp % sb:
-        sb -= 1
-    film = torch.zeros((p + 1, 3), dtype=torch.float32, device=dev)
-    film[:p] = torch.stack(tuple(scene.bkgcolor)).to(torch.float32)
-
-    def step(outs, lanes, first):
-        lane, px, py, soff = lanes
-        return (_wavefront(scene, cam, opts, seed, outs[0], lane, px, py,
-                           first + soff),)
-    (film,), _ = cuda_graph.run(
-        "bdpt", scene, cam, ((cam,), (opts, seed, sb)),
-        cuda_graph.eligible(dev, opts, seed, sample_base),
-        [sample_base + s * sb for s in range(opts.spp // sb)], (film,),
-        lambda: _lanes(cam, sb, dev), step)
-    img = film[:p]
-    img = torch.where(torch.isnan(img), 0.0, img)
-    return img.reshape(cam.height, cam.width, 3)
-
-
-def _lanes(cam: Camera, sb: int, dev):
-    """(lane, px, py, sample offset) [sb * p] of a wavefront of ``sb``
-    samples a pixel."""
-    p = cam.n_pixels
-    lane = torch.arange(p, dtype=torch.int32, device=dev).repeat(sb)
-    soff = torch.arange(sb, dtype=torch.int32, device=dev) \
-        .repeat_interleave(p)
-    return lane, lane % cam.width, lane // cam.width, soff
-
-
-def _wavefront(scene, cam: Camera, opts: RenderOptions, seed, film, lane, px,
-               py, sample):
-    """``film`` [p + 1, 3] plus one wavefront's estimates (in place) and
-    splats (a new film)."""
-    p = cam.n_pixels
-    sb = lane.shape[0] // p
-    est, sidx, srgb = render_sample_bdpt(scene, cam, px, py, lane, sample,
-                                         seed, opts)
-    film[:p] += torch.stack([c.reshape(sb, p).sum(dim=0) for c in est],
-                            -1) * (1.0 / opts.spp)
-    with span("bdpt.splat") as sp:
-        if sp.on and sidx:
-            sp.count("splats", live_lanes(torch.cat(sidx) >= 0))
-        return splat_film(film, sidx, srgb)
+        frame = BDPTFrame(scene, cam, opts, seed, sample_base)
+        outs, lanes = cuda_graph.run(
+            frame, cuda_graph.eligible(scene.device, opts, seed, sample_base))
+        return frame.image(outs, lanes)

@@ -55,18 +55,19 @@ Under ``utils/profiling.py``'s spans, ``render`` is a unit with a
 it again when the backward pass recomputes it), ``bounce.epilogue`` and
 ``bounce.compact``; the queries, shading and draws inside open their own.
 
+``PathFrame`` is the schedule of a render (``integrators/frame.py``):
+``render``, ``grad.render_diff`` and the sharded gradient step all run it.
 On the card, ``render`` replays each wavefront from a CUDA graph
 (``utils/cuda_graph.py::run``, as BDPT does): the ~18,000 launches of a
 wavefront at max_depth 6 would otherwise each be dispatched by the host,
-which then sets the pace. A scene's capture is keyed by the camera,
-options, seed and samples a wavefront; it keeps the lane order and its
-inverse, so a replay builds neither. A wavefront runs eagerly under
-``run``'s rules, and also while the two query entry points
-(``intersect_core``, ``occluded``) are not the ones this module imported,
-so that a tool that wraps them (the benchmark's count of each query's live
-rays) sees every query: a capture and a replay run only this module's own.
-The image is the eager one's bit for bit (no atomics: the compaction
-flushes add once a film slot), compacted options included.
+which then sets the pace. A capture keeps the frame's lanes, so a replay
+builds none. A wavefront runs eagerly under ``run``'s rules, and also
+while the two query entry points (``intersect_core``, ``occluded``) are
+not the ones this module imported, so that a tool that wraps them (the
+benchmark's count of each query's live rays) sees every query: a capture
+and a replay run only this module's own. The image is the eager one's bit
+for bit (no atomics: the compaction flushes add once a film slot),
+compacted options included.
 """
 from __future__ import annotations
 
@@ -87,6 +88,7 @@ from ..scene.data import (MICROFACET_T, PERFECT_REFLECTIVE, UNLIT, SceneData)
 from ..utils import cuda_graph, rng
 from ..utils.profiling import live_lanes, span, spanned, unit
 from ..utils.vec import Vec3, reflect, where as vwhere
+from .frame import Frame
 
 # the bounce loop's query entry points as imported: while a tool rebinds
 # them (to count each query), wavefronts run eagerly, calling its wrappers
@@ -776,15 +778,51 @@ def _render_sample(scene, cam, px, py, lane, sample_idx, seed, opts,
     return (L, over) if collect_overflow else L
 
 
-def _block_order(width: int, height: int, block: int = 32):
-    """Pixel visit order in (block x block) screen tiles, as the JAX
-    package emits its lanes (the RNG is keyed by pixel, so the order does
-    not change the image)."""
-    ys, xs = np.mgrid[0:height, 0:width]
-    bw = -(-width // block)
-    key = ((ys // block) * bw + (xs // block)) * (block * block) \
-        + (ys % block) * block + (xs % block)
-    return np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
+class PathFrame(Frame):
+    """The path tracer's schedule: lanes in 32x32 screen-block order;
+    accumulators each lane's radiance x, y, z [sb * m] and the live lanes
+    the compaction roulette dropped (int32 0-d); the image each pixel's
+    sum over its lanes times 1/spp, unpermuted to [H, W, 3] (over a tile:
+    the partial film [m, 3] in the tile's order)."""
+
+    name = "path"
+
+    def order(self) -> np.ndarray:
+        """Pixel visit order in 32x32 screen tiles, as the JAX package
+        emits its lanes (the RNG is keyed by pixel, so the order does not
+        change the image)."""
+        width, height, block = self.cam.width, self.cam.height, 32
+        ys, xs = np.mgrid[0:height, 0:width]
+        bw = -(-width // block)
+        key = ((ys // block) * bw + (xs // block)) * (block * block) \
+            + (ys % block) * block + (xs % block)
+        return np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
+
+    def accumulators(self):
+        dev = self.scene.device
+        zero = torch.zeros((self.sb * self.m,), dtype=torch.float32,
+                           device=dev)
+        return zero, zero, zero, torch.zeros((), dtype=torch.int32,
+                                             device=dev)
+
+    # this module's render_sample, looked up at each call
+    sample = staticmethod(lambda *args, **kw: render_sample(*args, **kw))
+
+    def step(self, scene, outs, lanes, first):
+        L, dropped = self.sample(scene, self.cam, lanes.px, lanes.py,
+                                 lanes.pix, first + lanes.soff, self.seed,
+                                 self.opts, collect_overflow=True)
+        ax, ay, az, over = outs
+        return ax + L.x, ay + L.y, az + L.z, over + dropped
+
+    def image(self, outs, lanes):
+        inv = 1.0 / self.opts.spp
+        img = torch.stack([a.reshape(self.sb, self.m).sum(dim=0) * inv
+                           for a in outs[:3]], dim=-1)
+        if lanes.inv is None:
+            return img
+        # the film accumulates in lane order and unpermutes once at the end
+        return img[lanes.inv].reshape(self.cam.height, self.cam.width, 3)
 
 
 def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
@@ -793,58 +831,20 @@ def render(scene: SceneData, cam: Camera, opts: RenderOptions, seed=0,
     device. ``sample_base`` shifts the global sample indices so chunked
     renders continue the exact stream.
 
-    Lanes are emitted in 32x32 screen-block order, and
     ``opts.samples_per_launch`` > 1 batches that many spp into one
-    wavefront (lane = (sample, blocked pixel)); the per-pixel sums are those
-    of the one-sample row-major schedule.
+    wavefront (``PathFrame``); the per-pixel sums are those of the
+    one-sample row-major schedule.
 
     ``stats=True`` returns (img, {"compaction_overflow": int32 0-d tensor
     on the device}): the live lanes the compaction roulette dropped over
     the whole render, which the caller reads after its own sync."""
     with unit("render"):
-        return _render(scene, cam, opts, seed, sample_base, stats)
-
-
-def _render(scene, cam, opts, seed, sample_base, stats):
-    dev = scene.device
-    p = cam.n_pixels
-    sb = max(1, min(opts.samples_per_launch or 1, opts.spp))
-    while opts.spp % sb:
-        sb -= 1
-
-    def step(outs, lanes, first):
-        pix, px, py, soff, _ = lanes
-        L, dropped = render_sample(scene, cam, px, py, pix, first + soff,
-                                   seed, opts, collect_overflow=True)
-        ax, ay, az, over = outs
-        return ax + L.x, ay + L.y, az + L.z, over + dropped
-    zero = torch.zeros((p * sb,), dtype=torch.float32, device=dev)
-    (*acc, over), lanes = cuda_graph.run(
-        "path", scene, cam, ((cam,), (opts, seed, sb)),
-        cuda_graph.eligible(dev, opts, seed, sample_base) and
-        (intersect_core, occluded) == _QUERIES,
-        [sample_base + s * sb for s in range(opts.spp // sb)],
-        (zero, zero, zero, torch.zeros((), dtype=torch.int32, device=dev)),
-        lambda: _lanes(cam, sb, dev), step)
-    inv = 1.0 / opts.spp
-    img = torch.stack([a.reshape(sb, p).sum(dim=0) * inv for a in acc],
-                      dim=-1)
-    # the film accumulates in lane order and unpermutes once at the end
-    img = img[lanes[4]].reshape(cam.height, cam.width, 3)
-    if stats:
-        # a capture's count is overwritten by its next replay
-        return img, {"compaction_overflow": over.clone()}
-    return img
-
-
-def _lanes(cam: Camera, sb: int, dev):
-    """(pixel id, px, py, sample offset) [sb * p] of a wavefront of ``sb``
-    samples a pixel in 32x32 block order, and the inverse of that order
-    [p] (int64)."""
-    p = cam.n_pixels
-    order_np = _block_order(cam.width, cam.height)
-    pix = torch.from_numpy(order_np).to(dev).repeat(sb)
-    soff = torch.arange(sb, dtype=torch.int32, device=dev) \
-        .repeat_interleave(p)
-    inv_order = torch.from_numpy(np.argsort(order_np)).to(dev)
-    return pix, pix % cam.width, pix // cam.width, soff, inv_order
+        frame = PathFrame(scene, cam, opts, seed, sample_base)
+        outs, lanes = cuda_graph.run(
+            frame, cuda_graph.eligible(scene.device, opts, seed, sample_base)
+            and (intersect_core, occluded) == _QUERIES)
+        img = frame.image(outs, lanes)
+        if stats:
+            # a capture's count is overwritten by its next replay
+            return img, {"compaction_overflow": outs[3].clone()}
+        return img

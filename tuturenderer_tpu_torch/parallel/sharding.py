@@ -23,16 +23,15 @@ full-frame films reduced over every rank.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from ..camera import Camera
-from ..grad import MaterialParams, _Frame, _RenderDiff, put_params
+from ..grad import MaterialParams, frame_image
 from ..integrators.light import _slot, compose_light_film, splat_film
-from ..integrators.path import render_sample
+from ..integrators.path import PathFrame, render_sample
 from ..options import RenderOptions
 from ..scene.data import SceneData
 from .distributed import Mesh, all_gather, all_reduce, new_mesh
@@ -204,43 +203,6 @@ def render_bdpt_sharded(scene: SceneData, cam: Camera, opts: RenderOptions,
     return torch.where(torch.isnan(img), 0.0, img)
 
 
-class _TileFrame(_Frame):
-    """One rank's share of ``grad.render_diff``: the lanes of its pixel
-    tile, its samples ``gs = s * n_sample + sample_id`` batched
-    ``samples_per_launch`` at a time, and as its image the partial film
-    [m, 3] those samples give (each scaled by 1/spp)."""
-
-    def __init__(self, scene: SceneData, cam: Camera, opts: RenderOptions,
-                 seed, mesh: Mesh):
-        self.scene, self.cam, self.seed = scene, cam, seed
-        self.opts = dataclasses.replace(opts, differentiable=True)
-        self.n_sample, self.sample_id, self.spp_local = _samples(opts, mesh)
-        lane = _lanes(cam, mesh, scene.device)
-        self.p = lane.shape[0]
-        sb = max(1, min(self.opts.samples_per_launch or 1, self.spp_local))
-        while self.spp_local % sb:
-            sb -= 1
-        self.sb = sb
-        self.pix = lane.repeat(sb)
-        self.soff = torch.arange(sb, dtype=torch.int32, device=lane.device) \
-            .repeat_interleave(self.p)
-
-    @property
-    def batches(self) -> int:
-        return self.spp_local // self.sb
-
-    def batch(self, leaves, s: int):
-        scene = put_params(self.scene, MaterialParams.from_leaves(leaves))
-        px, py = _screen(self.pix, self.cam)
-        gs = (s * self.sb + self.soff) * self.n_sample + self.sample_id
-        L = render_sample(scene, self.cam, px, py, self.pix, gs, self.seed,
-                          self.opts)
-        return torch.stack([c.reshape(self.sb, self.p).sum(0) for c in L])
-
-    def image(self, acc: torch.Tensor) -> torch.Tensor:
-        return (acc * (1.0 / self.opts.spp)).T
-
-
 def image_loss_and_grad_sharded(params: MaterialParams, target,
                                 scene: SceneData, cam: Camera,
                                 opts: RenderOptions, mesh: Mesh, seed=0):
@@ -248,19 +210,24 @@ def image_loss_and_grad_sharded(params: MaterialParams, target,
     MaterialParams of gradients), the same on every rank and equal to the
     single-device pair up to float order.
 
-    Each rank renders its tile's partial film through ``grad._RenderDiff``
-    (the forward pass keeps the per-pixel sum; the backward pass replays
-    one sample batch at a time, memory O(1) in spp); the partials are
-    summed over the sample group to give the film; the loss is
-    mean((film - target)^2) over H*W*3; d loss / d film = 2 (film - target)
-    / (3p) is the same on every sample rank, and each rank's replay takes
-    it for its own partial; the gradients are summed over every rank."""
-    frame = _TileFrame(scene, cam, opts, seed, mesh)
+    Each rank renders its tile's partial film through the path tracer's
+    frame over the tile's pixels, its samples ``gs = s * n_sample +
+    sample_id`` batched ``samples_per_launch`` at a time, under
+    ``grad._RenderDiff`` (the forward pass keeps the accumulators; the
+    backward pass replays one sample batch at a time, memory O(1) in spp);
+    the partials are summed over the sample group to give the film; the
+    loss is mean((film - target)^2) over H*W*3; d loss / d film =
+    2 (film - target) / (3p) is the same on every sample rank, and each
+    rank's replay takes it for its own partial; the gradients are summed
+    over every rank."""
+    n_sample, sample_id, _ = _samples(opts, mesh)
+    lane = _lanes(cam, mesh, scene.device)
     leaves = [a.detach().requires_grad_(True) for a in params.leaves()]
-    partial = _RenderDiff.apply(frame, *leaves)            # [m, 3]
+    partial = frame_image(PathFrame, MaterialParams.from_leaves(leaves),
+                          scene, cam, opts, seed, pixels=lane,
+                          stride=n_sample, offset=sample_id)      # [m, 3]
     film = all_reduce(partial.detach(), mesh, ("sample",))
     p = cam.n_pixels
-    lane = frame.pix[:frame.p]
     tgt = torch.as_tensor(target, dtype=torch.float32, device=lane.device)
     if tuple(tgt.shape) != (cam.height, cam.width, 3):
         raise ValueError(f"target {tuple(tgt.shape)}, the camera renders "

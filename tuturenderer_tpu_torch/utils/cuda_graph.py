@@ -12,25 +12,24 @@ The port counts its kernels' launches in Python
 replay runs no Python. So the capture, which launches nothing, takes back
 what it counted, and each replay adds it. No span records while capturing.
 
-``run`` drives the wavefronts of one render of an integrator (the path
-tracer's ``"path"``, BDPT's ``"bdpt"``) over this: a scene keeps one
-capture an integrator, for one key (the camera and whatever else a
-wavefront's launches depend on, ``ops/intersect.py``'s ``DENSE_KERNEL``
-among them), taken after an eager wavefront, which
-loads every kernel, and dropped with the scene. A wavefront runs eagerly
-while spans record (a profiler, ``recording()``), so that they see every
-op; where the caller rules graphs out (off the card, ``differentiable``
-options, a seed or sample base that is not an int: ``eligible``); where a
-scene or camera tensor requires grad; where the capture failed; and under
-``ON = False``. ``REPLAYED`` and ``EAGER`` count the wavefronts each
-integrator replayed and ran eagerly.
+``run`` drives the wavefronts of one render over this, as its frame
+(``integrators/frame.py``) schedules them: a scene keeps one capture an
+integrator (the path tracer's ``"path"``, BDPT's ``"bdpt"``), for the key
+of one frame, taken after an eager wavefront, which loads every kernel,
+and dropped with the scene. A wavefront runs eagerly while spans record
+(a profiler, ``recording()``), so that they see every op; where the caller
+rules graphs out (off the card, ``differentiable`` options, a seed or
+sample base that is not an int: ``eligible``); where a scene or camera
+tensor requires grad; where the capture failed; and under ``ON = False``.
+``REPLAYED`` and ``EAGER`` count the wavefronts each integrator replayed
+and ran eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
 import weakref
-from typing import Callable, Dict, List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -102,9 +101,6 @@ REPLAYED = {"path": 0, "bdpt": 0}     # wavefronts replayed, by integrator
 EAGER = {"path": 0, "bdpt": 0}        # wavefronts run eagerly, by integrator
 _CAPTURED: Dict[Tuple[int, str], "Captured"] = {}  # (id(scene), integrator)
 
-# (objects compared by identity, values compared by ==)
-Key = Tuple[tuple, tuple]
-
 
 def eligible(dev, opts, seed, sample_base) -> bool:
     """Whether a render's wavefronts may replay at all: on the card, with
@@ -126,34 +122,35 @@ def leaves(obj) -> List[torch.Tensor]:
 
 
 class Captured:
-    """One wavefront of integrator ``name`` for a scene, in a CUDA graph:
-    replayed, it adds the wavefront of the sample ids from ``first`` on to
-    ``outs`` (tensors shaped as the ``outs`` it was made with), reading the
-    ``lanes`` it keeps. ``graph`` is None where the capture failed or a
-    scene or camera tensor requires grad: that scene runs eagerly."""
+    """One wavefront of ``frame`` in a CUDA graph: replayed, it adds the
+    batch from the sample id ``first`` to ``outs`` (shaped as the ``outs``
+    it was made with), reading the lanes it keeps, and no reference to the
+    scene. ``graph`` is None where the capture failed or a scene or camera
+    tensor requires grad: that scene runs eagerly."""
 
-    def __init__(self, name: str, scene, cam, key: Key, outs, lanes, step):
-        self.key = key
-        self.leaves = leaves((scene, cam))
+    def __init__(self, frame, outs):
+        scene = frame.scene
+        self.key = frame.key
+        self.leaves = leaves((scene, frame.cam))
         self.outs = tuple(torch.zeros_like(o) for o in outs)
         self.first = torch.zeros((), dtype=torch.int32, device=scene.device)
         self.graph = None
         if any(t.requires_grad for t in self.leaves):
             return
         # a replay reads them where the capture found them: keep them
-        self.lanes = lanes()
+        self.lanes = frame.lanes()
 
         def wavefront():
-            for mine, new in zip(self.outs,
-                                 step(self.outs, self.lanes, self.first)):
+            for mine, new in zip(self.outs, frame.step(
+                    scene, self.outs, self.lanes, self.first)):
                 mine.copy_(new)
         try:
             self.graph = Graph(wavefront, scene.device)
         except RuntimeError as e:
-            warnings.warn(f"{name}'s wavefront did not capture in a CUDA "
-                          f"graph and runs eagerly: {e}")
+            warnings.warn(f"{frame.name}'s wavefront did not capture in a "
+                          f"CUDA graph and runs eagerly: {e}")
 
-    def takes(self, key: Key) -> bool:
+    def takes(self, key) -> bool:
         (objs, values), (mine, my_values) = key, self.key
         return len(objs) == len(mine) and \
             all(a is b for a, b in zip(objs, mine)) and values == my_values
@@ -163,22 +160,21 @@ class Captured:
             not any(t.requires_grad for t in self.leaves)
 
 
-def run(name: str, scene, cam, key: Key, graphs: bool, firsts, outs,
-        lanes: Callable, step: Callable):
-    """The wavefronts of one render: ``outs = step(outs, lanes, first)``
-    for each sample id ``first`` in ``firsts`` (an int, or the capture's
-    0-d device tensor), each eager or a replay of the scene's capture
-    where ``graphs`` holds, its key is ``key`` and no span records.
-    ``lanes()`` makes what ``step`` reads besides (once a render, and once
-    more for a capture, which keeps its own). After an eager wavefront with
-    ``graphs``, no capture of ``key`` and no profiler, a capture of ``key``
-    replaces the scene's. Returns (outs, lanes): a capture's own where
-    every wavefront replayed."""
-    from ..ops import intersect
-    # the dense form names the kernels a wavefront launches
-    key = (key[0], key[1] + (intersect.DENSE_KERNEL,))
+def run(frame, graphs: bool):
+    """The wavefronts of one render: from ``frame.accumulators()``,
+    ``outs = frame.step(frame.scene, outs, lanes, first)`` for each
+    ``first`` of ``frame.firsts`` (an int, or the capture's 0-d device
+    tensor), each eager or a replay of the scene's capture where ``graphs``
+    holds, the capture takes ``frame.key`` and no span records.
+    ``frame.lanes()`` runs once a render, for an eager wavefront, and once
+    more for a capture, which keeps its own. After an eager wavefront with
+    ``graphs``, no capture of the key and no profiler, a capture replaces
+    the scene's. Returns (outs, lanes): a capture's own where every
+    wavefront replayed."""
+    name, scene, key = frame.name, frame.scene, frame.key
+    outs = frame.accumulators()
     made = cap = None
-    for first in firsts:
+    for first in frame.firsts:
         cap = _CAPTURED.get((id(scene), name)) if graphs else None
         if cap is not None and not cap.takes(key):
             cap = None
@@ -193,18 +189,18 @@ def run(name: str, scene, cam, key: Key, graphs: bool, firsts, outs,
             REPLAYED[name] += 1
             continue
         if made is None:
-            made = lanes()
-        outs = step(outs, made, first)
+            made = frame.lanes()
+        outs = frame.step(scene, outs, made, first)
         EAGER[name] += 1
         if graphs and cap is None and not profiling._profiler_enabled():
-            _capture(name, scene, cam, key, outs, lanes, step)
+            _capture(frame, outs)
     return outs, made if made is not None else cap.lanes
 
 
-def _capture(name: str, scene, cam, key: Key, outs, lanes, step) -> None:
-    """Replace the scene's capture of ``name`` (freeing the old one's
-    memory first)."""
-    k = (id(scene), name)
+def _capture(frame, outs) -> None:
+    """Replace the scene's capture of the frame's integrator (freeing the
+    old one's memory first)."""
+    k = (id(frame.scene), frame.name)
     if _CAPTURED.pop(k, None) is None:
-        weakref.finalize(scene, _CAPTURED.pop, k, None)
-    _CAPTURED[k] = Captured(name, scene, cam, key, outs, lanes, step)
+        weakref.finalize(frame.scene, _CAPTURED.pop, k, None)
+    _CAPTURED[k] = Captured(frame, outs)
