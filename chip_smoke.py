@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: name, power limit, torch and CUDA versions;
 2. build: nvcc compiles ``tuturenderer_tpu_torch/csrc/dense_intersect.cu``
    (K1-K4), ``bvh_walk.cu`` (K5-K7), ``proto_visit.cu`` (K8) and
-   ``rng.cu`` (the RNG's draw), one process each, started together, with
-   each kernel's registers, stack frame and spills;
+   ``rng.cu`` (the RNG's draw) and ``bsdf.cu`` (the BSDF's three calls),
+   one process each, started together, with each kernel's registers,
+   stack frame and spills;
 3. each dense intersection kernel, in the Woop form (K1, K2) and the
    Moller-Trumbore form (K3, K4), against its plain PyTorch version on the
    card: simple_box's 12 triangles at 1,048,576 rays, the first 100,001 of
@@ -28,7 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    on the card, timed by ``utils/profiling.py``'s ``measure_render``, with
    the kernel launch counts of that run; the RNG kernel's launches of that
    run held to the ``rng`` spans of the same render run again under the
-   span recorder, one a span, every number drawn by the kernel;
+   span recorder, one a span, every number drawn by the kernel; the BSDF
+   kernels' launches held to 2 evals, 1 sample and 2 pdfs a bounce;
 5. the render at the size of the stored JAX reference image
    (``tests/data/torch_simple_box_jax_ref.npy``) against that image;
 6. each cluster kernel, the three modes of the BVH walk of
@@ -176,7 +178,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     Python ints, lane and sample int32 columns): every purpose bit-equal,
     one launch a draw, and the device time of a draw beside its bound by
     bytes and the plain hash's time a draw. The kernels line gives it phase
-    4's launches and the largest difference from the plain hash seen here.
+    4's launches and the largest difference from the plain hash seen here;
+25. the BSDF kernels (``csrc/bsdf.cu``) against the plain versions
+    (``materials.py``'s ``*_plain``) at 1,048,576 and 4,194,304 lanes of
+    every material type: each call bit-equal with its flags on and off,
+    one launch a call, and the device time of each call beside its bound
+    by bytes and the plain version's time. The kernels line gives each
+    phase 4's launches.
 
 Every render of phases 14-22 is timed and its kernel launches are held to
 the count its log line's formula gives. Their kernel comparisons run on the
@@ -444,7 +452,7 @@ def phase_device():
 def phase_build():
     log("== phase 2: build")
     from tuturenderer_tpu_torch.ops.cuda import build
-    names = ("dense_intersect", "bvh_walk", "proto_visit", "rng")
+    names = ("dense_intersect", "bvh_walk", "proto_visit", "rng", "bsdf")
     t0 = time.perf_counter()
     build.load_all(names)
     secs = time.perf_counter() - t0
@@ -603,6 +611,7 @@ def dense_bounds(form: str, scene, rays, shape: str) -> dict:
 
 def phase_slice(dev):
     log("== phase 4: render(simple_box(1024, 1024), RenderOptions(spp=64))")
+    from tuturenderer_tpu_torch import materials
     from tuturenderer_tpu_torch.camera import primary_ray
     from tuturenderer_tpu_torch.integrators.path import render, trace_rays
     from tuturenderer_tpu_torch.ops.cuda.intersect import LAUNCHES
@@ -620,6 +629,8 @@ def phase_slice(dev):
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     rng.LAUNCHES = 0
+    for k in materials.LAUNCHES:
+        materials.LAUNCHES[k] = 0
     # timed by utils/profiling.py's measure_render (the card synchronised
     # at both edges); phase 23 prints its counters
     out = []
@@ -629,9 +640,17 @@ def phase_slice(dev):
     img, wall = out[0], stats.wall_s
     launches = dict(LAUNCHES)
     rng_launches = rng.LAUNCHES
+    bsdf_launches = dict(materials.LAUNCHES)
 
     per_sample = {"nearest": opts.max_depth + 2, "anyhit": opts.max_depth + 1}
     check_launches(launches, {k: v * opts.spp for k, v in per_sample.items()})
+    bounces = (opts.max_depth + 1) * opts.spp
+    want = {"eval": 2 * bounces, "sample": bounces, "pdf": 2 * bounces}
+    log(f"BSDF kernel launches: {bsdf_launches} (expected {want})")
+    if bsdf_launches != want:
+        raise AssertionError(f"BSDF launches {bsdf_launches}, expected "
+                             f"{want}")
+    launches.update({f"bsdf_{k}": n for k, n in bsdf_launches.items()})
     launches["rng_uniform"] = check_rng_launches(
         rng_launches, lambda: render(scene, cam, opts, seed=0), img, opts.spp)
     if not bool(torch.isfinite(img).all()):
@@ -2938,6 +2957,118 @@ def phase_rng(dev, launches: int) -> dict:
                                                        "bound_ms")}}
 
 
+# bytes a lane of each material type moves in each BSDF call: the columns
+# csrc/bsdf.cu's branch of that type reads (4 bytes a float32 or int32
+# column, 1 the TIR mask; a Python-float scene eta none) and its outputs
+# (float32, and sample's two bools). Every lane reads its type; a lane of
+# no admitted type reads nothing more. The Lambertian eval's diffuse is
+# counted on rejected lanes too, which skip it.
+BSDF_LANE_BYTES = {
+    "eval": {"all": 4 + 12, "geometry": 48,
+             0: 12, 1: 0, 2: 4 + 1, 3: 12 + 4 + 4, 4: 4 + 4 + 1, 5: None},
+    "sample": {"all": 4 + 12 + 12 + 4 + 4 + 12 + 2, "geometry": 0,
+               0: 0, 1: 0, 2: 4 + 4, 3: 4, 4: 4 + 4 + 4, 5: 0},
+    "pdf": {"all": 4 + 4, "geometry": 36,
+            0: 0, 1: 0, 2: 4, 3: 4, 4: 4 + 4, 5: None},
+}
+
+
+def bsdf_inputs(dev, n: int, seed: int):
+    """(params, wi, wo, ng, ns, tir, (r0, r1, lottery)) of ``n`` lanes on
+    ``dev``, every material type equally often, a fifth of the wi the
+    mirror of wo (the delta branches fire), a fifth of the lanes TIR."""
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.utils.vec import Vec3, reflect
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda: torch.rand(n, generator=g, device=dev)
+
+    def unit():
+        v = torch.randn(3, n, generator=g, device=dev)
+        return Vec3(*(v / v.norm(dim=0)))
+    p = TM.MatParams(
+        mtype=torch.randint(0, 6, (n,), generator=g, device=dev,
+                            dtype=torch.int32),
+        diffuse=Vec3(r(), r(), r()), specular=Vec3(r(), r(), r()),
+        emission=Vec3(r(), r(), r()), alpha=r(), eta=1.1 + r(),
+        roughness=0.05 + 0.95 * r(), metallic=r())
+    ns = unit()
+    ng = (ns + unit() * 0.3).normalized(1e-20)
+    wo, wi = unit(), unit()
+    mirror = torch.arange(n, device=dev) % 5 == 0
+    wi = Vec3(*(torch.where(mirror, a, b) for a, b in
+                zip(reflect(wo, ns).normalized(1e-20), wi)))
+    return p, wi, wo, ng, ns, r() < 0.2, (r(), r(), r())
+
+
+def bsdf_bytes_of(out) -> torch.Tensor:
+    """A BSDF call's outputs (a tensor, a Vec3, a SampleResult) as one
+    column of their bytes: equal bytes are equal bits, NaNs included."""
+    return torch.cat([c.reshape(-1).view(torch.uint8)
+                      for c in torch.utils._pytree.tree_leaves(out)])
+
+
+def bsdf_bytes(call: str, mtype: torch.Tensor) -> int:
+    """The bytes of ``BSDF_LANE_BYTES`` over the lanes of ``mtype``."""
+    table = BSDF_LANE_BYTES[call]
+    counts = torch.bincount(mtype.long(), minlength=6).tolist()
+    total = table["all"] * mtype.numel()
+    for t, k in enumerate(counts[:6]):
+        if table[t] is not None:
+            total += k * (table["geometry"] + table[t])
+    return total
+
+
+def phase_bsdf(dev, launches: dict) -> list:
+    """Phase 25: the BSDF kernels against the plain versions at the path
+    tracer's widths; -> their entries for the kernels line, each with
+    phase 4's launches."""
+    log("== phase 25: the BSDF kernels (csrc/bsdf.cu) against the plain "
+        "versions")
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.utils.timing import device_ms
+    t_phase = time.perf_counter()
+    stats = {}
+    for n in (1 << 20, 1 << 22):
+        p, wi, wo, ng, ns, tir, (r0, r1, lot) = bsdf_inputs(dev, n, n)
+        eta = torch.tensor(1.0, device=dev)
+        calls = {
+            "eval": [(lambda f, a=a, t=t: f(p, wi, wo, ng, ns, eta, a, t))
+                     for a in (False, True) for t in (None, tir)],
+            "sample": [(lambda f, b=b: f(p, wo, ns, r0, r1, lot, eta, b))
+                       for b in (False, True)],
+            "pdf": [(lambda f: f(p, wi, wo, ns, eta, p.eta))]}
+        for call, variants in calls.items():
+            kernel = getattr(TM, f"bxdf_{call}")
+            plain = getattr(TM, f"bxdf_{call}_plain")
+            for v in variants:
+                before = TM.LAUNCHES[call]
+                got, want = v(kernel), v(plain)
+                if TM.LAUNCHES[call] != before + 1:
+                    raise AssertionError(f"bxdf_{call} launched "
+                                         f"{TM.LAUNCHES[call] - before}")
+                if not torch.equal(bsdf_bytes_of(got), bsdf_bytes_of(want)):
+                    raise AssertionError(f"bxdf_{call} kernel differs from "
+                                         f"the plain version at {n} lanes")
+            ms = device_ms(lambda: variants[0](kernel))
+            plain_ms = device_ms(lambda: variants[0](plain), hold_ms=0)
+            bound_ms = bsdf_bytes(call, p.mtype) / PEAK_BYTES * 1e3
+            stats[(call, n)] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms)
+            log(f"  {n} lanes, {call}: {len(variants)} variants bit-equal, "
+                f"one launch a call; kernel {ms:.4f} ms (bound "
+                f"{bound_ms:.4f} ms by bytes, {bound_ms / ms * 100:.1f} %); "
+                f"plain {plain_ms:.3f} ms")
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    big, small = 1 << 22, 1 << 20
+    return [{"name": f"bsdf_{call}", "route": "cuda",
+             "source": "tuturenderer_tpu_torch/csrc/bsdf.cu",
+             "replaces": None, "launches": launches[f"bsdf_{call}"],
+             "max_abs_err": 0.0, **stats[(call, big)], "bound_by": "bytes",
+             "library_ms": None,
+             "at_1M": stats[(call, small)]} for call in ("eval", "sample",
+                                                         "pdf")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2994,6 +3125,7 @@ def main() -> int:
     merge_errs(errs, {k: v for k, v in new_errs.items() if k in errs})
     merge_errs(cl_errs, {k: v for k, v in new_errs.items() if k not in errs})
     rng_kernel = phase_rng(dev, launches["rng_uniform"])
+    bsdf_kernels = phase_bsdf(dev, launches)
     log(f"the whole script: {time.perf_counter() - t_start:.1f} s")
     # K1/K2 launches from the simple_box render, K3/K4 from the dense
     # training path's forward+backward; times and bounds at simple_box's
@@ -3026,6 +3158,7 @@ def main() -> int:
         "launches": visit_launches["proto_visit"], "max_abs_err": visit_err,
         **visit, "library_ms": None})
     kernels.append(rng_kernel)
+    kernels += bsdf_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -932,3 +932,266 @@ def test_render_draws_through_the_rng_kernel(dev, monkeypatch):
     finally:
         rng.uniform, rng.uniform_simple = real
     assert torch.equal(_bits(img), _bits(plain))
+
+
+# ------------------------------------------------------------ the BSDF kernel
+
+BSDF_LANES = 100_003        # not a multiple of the kernel's 256-lane block
+
+
+def _bsdf_inputs(dev, n=BSDF_LANES, seed=0, mtype=None):
+    """(params, wi, wo, ng, ns, tir, (r0, r1, lottery)) on ``dev``: every
+    material type and a value that is none (6), or ``mtype`` on every lane;
+    a fifth of the wi the mirror of wo, so the delta branches fire, and wo
+    on both sides of ns."""
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.utils.vec import Vec3, reflect
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda: torch.rand(n, generator=g, device=dev)
+
+    def unit():
+        v = torch.randn(3, n, generator=g, device=dev)
+        return Vec3(*(v / v.norm(dim=0)))
+    mt = torch.randint(0, 7, (n,), generator=g, device=dev,
+                       dtype=torch.int32) if mtype is None else \
+        torch.full((n,), mtype, dtype=torch.int32, device=dev)
+    p = TM.MatParams(mtype=mt, diffuse=Vec3(r(), r(), r()),
+                     specular=Vec3(r(), r(), r()),
+                     emission=Vec3(r(), r(), r()), alpha=r(), eta=1.1 + r(),
+                     roughness=0.05 + 0.95 * r(), metallic=r())
+    ns = unit()
+    ng = (ns + unit() * 0.3).normalized(1e-20)
+    wo, wi = unit(), unit()
+    mirror = torch.arange(n, device=dev) % 5 == 0
+    wi = Vec3(*(torch.where(mirror, a, b) for a, b in
+                zip(reflect(wo, ns).normalized(1e-20), wi)))
+    return p, wi, wo, ng, ns, r() < 0.2, (r(), r(), r())
+
+
+def _bsdf_equal(got, want):
+    """Bit for bit: float columns as int32 words (NaNs too), bool columns
+    as they are; Vec3s and tuples column by column."""
+    if isinstance(got, tuple):
+        return len(got) == len(want) and all(_bsdf_equal(a, b)
+                                             for a, b in zip(got, want))
+    if got.dtype == torch.bool:
+        return got.dtype == want.dtype and torch.equal(got, want)
+    return got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+
+
+BSDF_TYPE_SETS = [None, (0, 3), (1, 2, 4), (5,), ()]
+
+
+@pytest.mark.parametrize("mtype", [None, 0, 1, 2, 3, 4, 5])
+def test_bsdf_kernels_equal_plain_versions(dev, mtype):
+    """Each kernel against its plain version, bit for bit, on every type
+    (mixed, then each alone): adjoint and the TIR mask on and off, the GGX
+    sample quirk on and off, type sets that leave a lane's type out, the
+    scene eta as a 0-d tensor and as a Python float; one launch a call."""
+    from tuturenderer_tpu_torch import materials as TM
+    p, wi, wo, ng, ns, tir, (r0, r1, lot) = _bsdf_inputs(dev, mtype=mtype)
+    eta0 = torch.tensor(1.0, device=dev)
+    for types in BSDF_TYPE_SETS:
+        for eta in (eta0, 1.3):
+            for adjoint in (False, True):
+                for t in (None, tir):
+                    before = TM.LAUNCHES["eval"]
+                    got = TM.bxdf_eval(p, wi, wo, ng, ns, eta, adjoint, t,
+                                       types)
+                    assert TM.LAUNCHES["eval"] == before + 1
+                    assert _bsdf_equal(got, TM.bxdf_eval_plain(
+                        p, wi, wo, ng, ns, eta, adjoint, t, types))
+            for bug in (False, True):
+                got = TM.bxdf_sample(p, wo, ns, r0, r1, lot, eta, bug, types)
+                assert _bsdf_equal(got, TM.bxdf_sample_plain(
+                    p, wo, ns, r0, r1, lot, eta, bug, types))
+            for eta_mat in (None, p.eta * 0.9):
+                got = TM.bxdf_pdf(p, wi, wo, ns, eta, eta_mat, types)
+                assert _bsdf_equal(got, TM.bxdf_pdf_plain(
+                    p, wi, wo, ns, eta, eta_mat, types))
+
+
+def test_bsdf_kernels_take_odd_operands(dev):
+    """Strided views, a broadcast (stride-0) column, an int64 type column,
+    lengths of 1 and 255, and 0 lanes (no launch)."""
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.utils.vec import Vec3
+    p, wi, wo, ng, ns, tir, (r0, r1, lot) = _bsdf_inputs(dev, n=2 * 4099,
+                                                         seed=3)
+    half = lambda v: Vec3(*(c[::2] for c in v))
+    sp = TM.MatParams(*(half(f) if isinstance(f, Vec3) else f[::2]
+                        for f in p))
+    sp = sp._replace(mtype=sp.mtype.to(torch.int64),
+                     eta=torch.broadcast_to(torch.tensor(1.4, device=dev),
+                                            (4099,)))
+    cases = [(sp, half(wi), half(wo), half(ng), half(ns), tir[::2],
+              r0[::2], r1[1::2], lot[::2])]
+    for m in (1, 255, 0):
+        f = lambda v: Vec3(*(c[:m] for c in v))
+        cases.append((TM.MatParams(*(f(x) if isinstance(x, Vec3) else x[:m]
+                                     for x in p)), f(wi), f(wo), f(ng),
+                      f(ns), tir[:m], r0[:m], r1[:m], lot[:m]))
+    for q, a, b, g_, s_, t, u0, u1, u2 in cases:
+        before = dict(TM.LAUNCHES)
+        assert _bsdf_equal(TM.bxdf_eval(q, a, b, g_, s_, 1.0, tir=t),
+                           TM.bxdf_eval_plain(q, a, b, g_, s_, 1.0, tir=t))
+        assert _bsdf_equal(TM.bxdf_sample(q, b, s_, u0, u1, u2, 1.0),
+                           TM.bxdf_sample_plain(q, b, s_, u0, u1, u2, 1.0))
+        assert _bsdf_equal(TM.bxdf_pdf(q, a, b, s_, 1.0),
+                           TM.bxdf_pdf_plain(q, a, b, s_, 1.0))
+        launched = 0 if q.mtype.numel() == 0 else 1
+        assert TM.LAUNCHES == {k: v + launched for k, v in before.items()}
+
+
+def test_bsdf_kernels_capture_in_a_cuda_graph(dev):
+    """The three calls capture into one CUDA graph; its replay on new
+    inputs written in place equals the plain versions on them."""
+    from tuturenderer_tpu_torch import materials as TM
+    p, wi, wo, ng, ns, tir, (r0, r1, lot) = _bsdf_inputs(dev, seed=5)
+    calls = lambda: (TM.bxdf_eval(p, wi, wo, ng, ns, 1.0, tir=tir),
+                     TM.bxdf_sample(p, wo, ns, r0, r1, lot, 1.0),
+                     TM.bxdf_pdf(p, wi, wo, ns, 1.0))
+    calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = calls()
+    q, *new = _bsdf_inputs(dev, seed=6)
+    for mine, theirs in zip((p, wi, wo, ng, ns, tir, (r0, r1, lot)),
+                            (q, *new)):
+        for a, b in zip(torch.utils._pytree.tree_leaves(mine),
+                        torch.utils._pytree.tree_leaves(theirs)):
+            a.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _bsdf_equal(out, (TM.bxdf_eval_plain(p, wi, wo, ng, ns, 1.0,
+                                                tir=tir),
+                             TM.bxdf_sample_plain(p, wo, ns, r0, r1, lot,
+                                                  1.0),
+                             TM.bxdf_pdf_plain(p, wi, wo, ns, 1.0)))
+
+
+def test_bsdf_kernels_raise_on_operands_they_do_not_take(dev):
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.utils.vec import Vec3
+    p, wi, wo, ng, ns, tir, _ = _bsdf_inputs(dev, n=64)
+    bad = [(p, Vec3(wi.x.double(), wi.y, wi.z), "float32"),
+           (p, Vec3(wi.x.cpu(), wi.y, wi.z), "one CUDA device"),
+           (p, Vec3(wi.x[:32], wi.y, wi.z), "does not broadcast"),
+           (p._replace(mtype=p.mtype.float()), wi, "int32")]
+    before = dict(TM.LAUNCHES)
+    for q, a, match in bad:
+        with pytest.raises(ValueError, match=match):
+            TM.bxdf_eval(q, a, wo, ng, ns, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        TM.bxdf_pdf(p, wi, wo, ns, 1.0, p.eta.double())
+    # [8, 8] operands: contiguous ones are taken, a transposed one is not
+    sq = lambda f: Vec3(*(c.reshape(8, 8) for c in f)) \
+        if isinstance(f, Vec3) else f.reshape(8, 8)
+    q = TM.MatParams(*map(sq, p))
+    with pytest.raises(ValueError, match="contiguous"):
+        TM.bxdf_eval(q._replace(eta=q.eta.t()), *map(sq, (wi, wo, ng, ns)),
+                     1.0)
+    assert TM.LAUNCHES == before
+    assert _bsdf_equal(TM.bxdf_eval(q, *map(sq, (wi, wo, ng, ns)), 1.0),
+                       TM.bxdf_eval_plain(q, *map(sq, (wi, wo, ng, ns)),
+                                          1.0))
+
+
+def test_bsdf_runs_plain_where_autograd_records(dev):
+    """With grad enabled and an operand that requires grad nothing
+    launches and the value is the plain version's; under no_grad the same
+    call launches."""
+    from tuturenderer_tpu_torch import materials as TM
+    p, wi, wo, ng, ns, tir, _ = _bsdf_inputs(dev, n=4096)
+    leaf = p.roughness.clone().requires_grad_(True)
+    q = p._replace(roughness=leaf)
+    before = dict(TM.LAUNCHES)
+    with torch.enable_grad():
+        f = TM.bxdf_eval(q, wi, wo, ng, ns, 1.0)
+        pdf = TM.bxdf_pdf(q, wi, wo, ns, 1.0)
+        (f.x.sum() + pdf.sum()).backward()
+    assert TM.LAUNCHES == before and leaf.grad is not None
+    with torch.no_grad():
+        TM.bxdf_eval(q, wi, wo, ng, ns, 1.0)
+    assert TM.LAUNCHES["eval"] == before["eval"] + 1
+
+
+def test_render_shades_through_the_bsdf_kernels(dev):
+    """A path-traced render of simple_box launches 2 evals, 1 sample and 2
+    pdfs a bounce, eagerly and on replay; every ``shade.bsdf`` span of the
+    BSDF's calls counts ``kernel`` 1; the image equals the plain BSDF's
+    bit for bit."""
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.integrators import path
+    scene, cam = simple_box(32, 24, device=dev)
+    opts = RenderOptions(spp=2, max_depth=3, jitter=True)
+    bounces = 2 * (opts.max_depth + 1)
+    want = {"eval": 2 * bounces, "sample": bounces, "pdf": 2 * bounces}
+    for replay in (False, True):
+        before = dict(TM.LAUNCHES)
+        img = path.render(scene, cam, opts, seed=1)
+        assert {k: v - before[k] for k, v in TM.LAUNCHES.items()} == want
+        assert cuda_graph._CAPTURED[(id(scene), "path")].graph is not None
+    with profiling.recording():
+        n0 = len(profiling.recorded())
+        assert torch.equal(_bits(path.render(scene, cam, opts, seed=1)),
+                           _bits(img))
+        spans = [s for s in profiling.recorded()[n0:]
+                 if s.name == "shade.bsdf" and "kernel" in s.counts]
+    assert len(spans) == sum(want.values())
+    assert all(s.counts["kernel"] == 1 for s in spans)
+    real = {k: getattr(path, k) for k in ("bxdf_eval", "bxdf_sample",
+                                          "bxdf_pdf")}
+    try:
+        for k in real:
+            setattr(path, k, getattr(TM, k + "_plain"))
+        cuda_graph.ON = False
+        plain = path.render(scene, cam, opts, seed=1)
+    finally:
+        cuda_graph.ON = True
+        for k, f in real.items():
+            setattr(path, k, f)
+    assert torch.equal(_bits(img), _bits(plain))
+
+
+def test_invert_step_equals_the_plain_bsdf(dev):
+    """A material-inversion step on the card (its forward pass through the
+    kernels, its backward replay on the plain versions) gives the loss and
+    gradients of the same step with the plain versions bound in, bit for
+    bit. Under deterministic algorithms: the material gathers' backward
+    (``index_add_``) otherwise adds a million lanes into a few rows by
+    atomics, in an order that changes from run to run."""
+    from tuturenderer_tpu_torch import materials as TM
+    from tuturenderer_tpu_torch.integrators import path
+    scene, cam = simple_box(32, 24, device=dev)
+    opts = RenderOptions(spp=2, max_depth=3, differentiable=True)
+    target = path.render(scene, cam, dataclasses.replace(
+        opts, differentiable=False), seed=7).detach()
+    guess = G.MaterialParams.from_leaves(
+        [t * 0.9 for t in G.get_params(scene).leaves()])
+
+    def step():
+        before = dict(TM.LAUNCHES)
+        loss, grads = G.image_loss_and_grad(guess, target, scene, cam, opts,
+                                            seed=3)
+        return loss, grads, {k: v - before[k] for k, v in
+                             TM.LAUNCHES.items()}
+    real = {k: getattr(path, k) for k in ("bxdf_eval", "bxdf_sample",
+                                          "bxdf_pdf")}
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss, grads, launched = step()
+        for k in real:
+            setattr(path, k, getattr(TM, k + "_plain"))
+        p_loss, p_grads, p_launched = step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for k, f in real.items():
+            setattr(path, k, f)
+    assert launched["eval"] > 0
+    assert p_launched == {"eval": 0, "sample": 0, "pdf": 0}
+    assert torch.equal(_bits(loss), _bits(p_loss))
+    for g, w in zip(torch.utils._pytree.tree_leaves(grads),
+                    torch.utils._pytree.tree_leaves(p_grads)):
+        assert torch.equal(_bits(g), _bits(w))

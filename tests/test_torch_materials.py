@@ -157,6 +157,73 @@ def test_mis_power_weight_matches_jax():
            JM.mis_power_weight(*map(jnp.asarray, (a, b))))
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same(got, want):
+    """Bit for bit, column by column (NaNs too)."""
+    if isinstance(got, tuple):
+        return all(_same(a, b) for a, b in zip(got, want))
+    return got.dtype == want.dtype and torch.equal(_bits(got), _bits(want))
+
+
+@pytest.fixture
+def no_kernel(monkeypatch):
+    """The BSDF kernel's library may not load: a CPU call that tried would
+    raise."""
+    from tuturenderer_tpu_torch.ops.cuda import build
+
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU call loaded the BSDF kernel")
+    monkeypatch.setattr(TM, "_lib", refuse)
+    monkeypatch.setattr(build, "load_all", refuse)
+
+
+@pytest.mark.parametrize("types", [None, (0, 3), (1, 2, 4)])
+@pytest.mark.parametrize("mtype", TYPES)
+def test_bsdf_on_cpu_is_the_plain_version(no_kernel, mtype, types):
+    """On CPU operands the three public calls are their plain versions,
+    bit for bit, load no kernel and launch nothing; their spans count
+    ``kernel`` 0."""
+    from tuturenderer_tpu_torch.utils import profiling
+    jp, tp, ns, ng, wo, wi, tir = _eval_dirs(mtype, 60 + mtype)
+    wi, wo, ng, ns = (_both(v)[1] for v in (wi, wo, ng, ns))
+    tir = torch.from_numpy(tir)
+    r = np.random.RandomState(mtype)
+    r0, r1, lot = (torch.from_numpy(r.rand(N).astype(np.float32))
+                   for _ in range(3))
+    eta = torch.tensor(1.0)
+    before = dict(TM.LAUNCHES)
+    with profiling.recording():
+        n0 = len(profiling.recorded())
+        for adjoint in (False, True):
+            assert _same(TM.bxdf_eval(tp, wi, wo, ng, ns, eta, adjoint, tir,
+                                      types),
+                         TM.bxdf_eval_plain(tp, wi, wo, ng, ns, eta, adjoint,
+                                            tir, types))
+        for bug in (False, True):
+            assert _same(TM.bxdf_sample(tp, wo, ns, r0, r1, lot, 1.3, bug,
+                                        types),
+                         TM.bxdf_sample_plain(tp, wo, ns, r0, r1, lot, 1.3,
+                                              bug, types))
+        assert _same(TM.bxdf_pdf(tp, wi, wo, ns, eta, None, types),
+                     TM.bxdf_pdf_plain(tp, wi, wo, ns, eta, None, types))
+        spans = [s for s in profiling.recorded()[n0:]
+                 if s.name == "shade.bsdf"]
+    assert TM.LAUNCHES == before
+    assert len(spans) == 5 and all(s.counts == {"kernel": 0} for s in spans)
+
+
+def test_bsdf_kernel_refuses_operands_off_the_card():
+    """The kernel's wrapper takes operands on one CUDA device only."""
+    p = TM.MatParams(*(torch.zeros(4) for _ in range(8)))
+    v = Vec3(*(torch.zeros(4) for _ in range(3)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        TM._launch("pdf", (p.mtype.int(), p.roughness, p.eta, *v, *v, *v,
+                           1.0), None)
+
+
 def _textured_scene(mod):
     r = np.random.RandomState(4)
     b = mod.SceneBuilder(bkgcolor=(0.1, 0.2, 0.3), eta=1.2)

@@ -159,10 +159,12 @@ def test_off_records_nothing_and_hands_back_one_object(box, rec,
     path.render(scene, cam, OPTS, SEED)
     assert P.recorded() == []
     assert entered and all(e is P.OFF for e in entered)
-    # the with-sites (the decorated ones call straight through)
+    # the with-sites (the decorated ones call straight through); the BSDF's
+    # evaluation, sampling and pdf are with-sites that count ``kernel``
     with_sites = ("render", "render.sample", "bounce", "isect.nearest",
                   "isect.anyhit", "rng")
-    assert len(entered) == sum(s.name in with_sites for s in on)
+    assert len(entered) == sum(s.name in with_sites or (
+        s.name == "shade.bsdf" and "kernel" in s.counts) for s in on)
 
 
 def test_film_and_gradient_bit_equal_on_and_off(box, rec):

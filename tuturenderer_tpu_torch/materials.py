@@ -2,9 +2,20 @@
 
 The port of ``tuturenderer_tpu/materials.py`` (Material.hpp:62-439:
 LAMBERTIAN, PERFECT_REFLECTIVE, PERFECT_REFRACTIVE, MICROFACET_R
-Cook-Torrance GGX, MICROFACET_T rough dielectric, UNLIT) as branch-free
-masked arithmetic: every lane computes each material branch present and one
-select picks the active one.
+Cook-Torrance GGX, MICROFACET_T rough dielectric, UNLIT) in two forms.
+
+- ``bxdf_eval_plain``, ``bxdf_sample_plain`` and ``bxdf_pdf_plain``:
+  branch-free masked arithmetic, where every lane computes each material
+  branch present and one select picks the active one. They run on the CPU,
+  and on the card wherever autograd records (grad enabled and an operand
+  that requires grad: the differentiable replay), and are the kernels'
+  oracle.
+- ``csrc/bsdf.cu``: one kernel a call, one lane a thread, each lane
+  computing only its own material's branch, bit-equal to the plain form.
+  ``bxdf_eval``, ``bxdf_sample`` and ``bxdf_pdf`` launch it for float32
+  CUDA operands otherwise, and raise for any other operand on the card (a
+  float64 column, a column on another device); ``LAUNCHES`` counts its
+  launches by call.
 
 Reference quirk kept as an option: ``sampleDirection`` for MICROFACET_R
 uses a^2 = roughness^2 (Material.hpp:212-214) while its pdf uses
@@ -12,10 +23,12 @@ a^2 = roughness^4; ``ggx_sample_bug=True`` reproduces it.
 
 ``gather_material`` is a ``shade.material`` span of ``utils/profiling.py``,
 and the BSDF's evaluation, sampling, pdf and MIS weight ``shade.bsdf``
-spans.
+spans; those of the evaluation, sampling and pdf count ``kernel``, 1 where
+the kernel served the call.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -25,7 +38,7 @@ import torch
 from .scene.data import (LAMBERTIAN, MICROFACET_R, MICROFACET_T,
                          PERFECT_REFLECTIVE, PERFECT_REFRACTIVE, UNLIT,
                          SceneData)
-from .utils.profiling import spanned
+from .utils.profiling import span, spanned
 from .utils.vec import (Vec3, lerp, local_to_world, reflect, refract,
                         where as vwhere)
 
@@ -138,10 +151,10 @@ def _safe_div_v(v: Vec3, b) -> Vec3:
 
 # ---------------------------------------------------------------- evaluate
 
-@spanned("shade.bsdf")
-def bxdf_eval(p: MatParams, wi_in: Vec3, wo_in: Vec3, ng: Vec3, ns: Vec3,
-              eta_scene, adjoint=False, tir=None, types=None) -> Vec3:
-    """Material::BxDF (Material.hpp:62-191).
+def bxdf_eval_plain(p: MatParams, wi_in: Vec3, wo_in: Vec3, ng: Vec3,
+                    ns: Vec3, eta_scene, adjoint=False, tir=None,
+                    types=None) -> Vec3:
+    """Material::BxDF (Material.hpp:62-191) in plain PyTorch.
 
     wi: incident (toward light transport continuation), wo: view; both unit,
     pointing away from the surface. ``tir`` is a per-lane bool for the
@@ -270,10 +283,11 @@ def _ggx_half_vector(n: Vec3, roughness, r0, r1, a2):
     return local_to_world(n, local)
 
 
-@spanned("shade.bsdf")
-def bxdf_sample(p: MatParams, wo: Vec3, n: Vec3, r0, r1, lottery, eta_scene,
-                ggx_sample_bug: bool = False, types=None) -> SampleResult:
-    """Material::sampleDirection (Material.hpp:200-343)."""
+def bxdf_sample_plain(p: MatParams, wo: Vec3, n: Vec3, r0, r1, lottery,
+                      eta_scene, ggx_sample_bug: bool = False,
+                      types=None) -> SampleResult:
+    """Material::sampleDirection (Material.hpp:200-343) in plain
+    PyTorch."""
     has = (lambda t: True) if types is None else (lambda t: t in types)
     won = wo.dot(n)
 
@@ -342,10 +356,10 @@ def bxdf_sample(p: MatParams, wo: Vec3, n: Vec3, r0, r1, lottery, eta_scene,
 
 # ---------------------------------------------------------------- pdf
 
-@spanned("shade.bsdf")
-def bxdf_pdf(p: MatParams, wi: Vec3, wo: Vec3, n: Vec3, eta_scene,
-             eta_mat=None, types=None):
-    """Material::pdf (Material.hpp:350-439); solid-angle measure."""
+def bxdf_pdf_plain(p: MatParams, wi: Vec3, wo: Vec3, n: Vec3, eta_scene,
+                   eta_mat=None, types=None):
+    """Material::pdf (Material.hpp:350-439), solid-angle measure, in plain
+    PyTorch."""
     has = (lambda t: True) if types is None else (lambda t: t in types)
     if eta_mat is None:
         eta_mat = p.eta
@@ -419,3 +433,166 @@ def mis_power_weight(pdf, other_pdf):
     """Power heuristic (global.hpp:374-380)."""
     s = pdf + other_pdf
     return _safe_div(pdf * pdf, s * s)
+
+
+# ---------------------------------------------------------------- the kernel
+
+LAUNCHES = {"eval": 0, "sample": 0, "pdf": 0}   # csrc/bsdf.cu's, by call
+
+# the kernels' columns, in csrc/bsdf.cu's order: each call's kinds, one a
+# column: t the material type, f float32, b the TIR mask
+_KINDS = {"eval": "t" + "f" * 19 + "b", "sample": "t" + "f" * 13,
+          "pdf": "t" + "f" * 12}
+_DTYPES = {"t": (torch.int32, torch.int64), "f": (torch.float32,),
+           "b": (torch.bool,)}
+_KIND = {torch.float32: 0, torch.int32: 1, torch.int64: 2, torch.bool: 3}
+
+
+def bxdf_eval(p: MatParams, wi_in: Vec3, wo_in: Vec3, ng: Vec3, ns: Vec3,
+              eta_scene, adjoint=False, tir=None, types=None) -> Vec3:
+    """Material::BxDF (Material.hpp:62-191): ``bxdf_eval_plain``'s value.
+
+    wi: incident (toward light transport continuation), wo: view; both unit,
+    pointing away from the surface. ``tir`` is a per-lane bool for the
+    delta/rough-dielectric TIR path (may be None). ``types``: material
+    types present in the scene; a lane of another type evaluates to 0."""
+    cols = (p.mtype, *p.diffuse, p.metallic, p.roughness, p.eta, *wi_in,
+            *wo_in, *ng, *ns, eta_scene, tir)
+    with span("shade.bsdf") as sp:
+        if not _on_card(sp, cols):
+            return bxdf_eval_plain(p, wi_in, wo_in, ng, ns, eta_scene,
+                                   adjoint, tir, types)
+        return Vec3(*_launch("eval", cols, types, int(adjoint)))
+
+
+def bxdf_sample(p: MatParams, wo: Vec3, n: Vec3, r0, r1, lottery, eta_scene,
+                ggx_sample_bug: bool = False, types=None) -> SampleResult:
+    """Material::sampleDirection (Material.hpp:200-343):
+    ``bxdf_sample_plain``'s value."""
+    cols = (p.mtype, p.alpha, p.eta, p.roughness, *wo, *n, r0, r1, lottery,
+            eta_scene)
+    with span("shade.bsdf") as sp:
+        if not _on_card(sp, cols):
+            return bxdf_sample_plain(p, wo, n, r0, r1, lottery, eta_scene,
+                                     ggx_sample_bug, types)
+        wi, success, tir = _launch("sample", cols, types,
+                                   int(ggx_sample_bug))
+        return SampleResult(wi=Vec3(*wi), success=success, tir=tir)
+
+
+def bxdf_pdf(p: MatParams, wi: Vec3, wo: Vec3, n: Vec3, eta_scene,
+             eta_mat=None, types=None):
+    """Material::pdf (Material.hpp:350-439), solid-angle measure:
+    ``bxdf_pdf_plain``'s value."""
+    cols = (p.mtype, p.roughness, p.eta if eta_mat is None else eta_mat,
+            *wi, *wo, *n, eta_scene)
+    with span("shade.bsdf") as sp:
+        if not _on_card(sp, cols):
+            return bxdf_pdf_plain(p, wi, wo, n, eta_scene, eta_mat, types)
+        return _launch("pdf", cols, types)
+
+
+def _on_card(sp, cols) -> bool:
+    """Whether the kernel serves a call on ``cols``: a CUDA operand and no
+    autograd recording (grad enabled and an operand that requires grad).
+    Counts ``kernel`` on the call's span."""
+    tensors = [c for c in cols if isinstance(c, torch.Tensor)]
+    on = any(t.is_cuda for t in tensors) and not (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+    if sp.on:
+        sp.count("kernel", int(on))
+    return on
+
+
+class _Col(ctypes.Structure):
+    """``csrc/bsdf.cu``'s ``BsdfCol``."""
+    _fields_ = [("ptr", ctypes.c_void_p), ("stride", ctypes.c_longlong),
+                ("value", ctypes.c_float), ("kind", ctypes.c_int)]
+
+
+def _lib():
+    from .ops.cuda import build
+    lib = build.load_all(build.RENDER_KERNELS)["bsdf"]
+    if lib.bsdf_eval.argtypes is None:
+        head = [ctypes.POINTER(_Col), ctypes.c_int, ctypes.c_uint]
+        p, n = ctypes.c_void_p, ctypes.c_longlong
+        lib.bsdf_eval.argtypes = head + [ctypes.c_int, n, p, p]
+        lib.bsdf_sample.argtypes = head + [ctypes.c_int, n, p, p, p, p]
+        lib.bsdf_pdf.argtypes = head + [n, p, p]
+        for f in (lib.bsdf_eval, lib.bsdf_sample, lib.bsdf_pdf):
+            f.restype = ctypes.c_int
+    return lib
+
+
+def _columns(call: str, cols):
+    """-> (the kernel's columns, the call's shape, its device). An operand
+    is a tensor of its column's dtypes on the call's one CUDA device, 0-d
+    (one value for every lane) or of the call's shape, 1-D (any stride) or
+    contiguous; a float column may be a Python number, the TIR mask None.
+    Raises on any other operand."""
+    devs = {c.device for c in cols if isinstance(c, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"the BSDF kernel takes operands on one CUDA "
+                         f"device, got {sorted(str(d) for d in devs)}")
+    shape = next((c.shape for c in cols
+                  if isinstance(c, torch.Tensor) and c.dim()), torch.Size())
+    out = []
+    for c, kind in zip(cols, _KINDS[call]):
+        if not isinstance(c, torch.Tensor):
+            if c is None and kind == "b":
+                out.append(_Col(None, 0, 0.0, _KIND[torch.bool]))
+                continue
+            if kind != "f" or not isinstance(c, (int, float)) or \
+                    isinstance(c, bool):
+                raise ValueError(f"the BSDF kernel takes a tensor of "
+                                 f"{_DTYPES[kind]} here, not {c!r}")
+            out.append(_Col(None, 0, float(c), 0))
+            continue
+        if c.dtype not in _DTYPES[kind]:
+            raise ValueError(f"the BSDF kernel takes {_DTYPES[kind]} here, "
+                             f"not {c.dtype}")
+        if c.dim() == 0:
+            stride = 0
+        elif c.shape != shape:
+            raise ValueError(f"the BSDF kernel does not broadcast an "
+                             f"operand of shape {tuple(c.shape)} to "
+                             f"{tuple(shape)}")
+        elif c.dim() == 1:
+            stride = c.stride(0)
+        elif c.is_contiguous():
+            stride = 1
+        else:
+            raise ValueError("the BSDF kernel takes an operand of more than "
+                             "one dimension only contiguous")
+        out.append(_Col(c.data_ptr(), stride, 0.0, _KIND[c.dtype]))
+    return out, shape, devs.pop()
+
+
+def _launch(call: str, cols, types, flag: int = 0):
+    """``call``'s kernel on ``cols`` -> its outputs, allocated here: eval
+    the [3, *shape] value, sample (the [3, *shape] direction, success, tir),
+    pdf the pdf; one launch on the current stream, none for 0 lanes."""
+    ccols, shape, dev = _columns(call, cols)
+    mask = 0xFFFFFFFF if types is None else \
+        sum(1 << t for t in set(types) if 0 <= t < 32)
+    outs = (torch.empty(shape if call == "pdf" else (3, *shape),
+                        dtype=torch.float32, device=dev),)
+    if call == "sample":
+        outs += tuple(torch.empty(shape, dtype=torch.bool, device=dev)
+                      for _ in range(2))
+    n = shape.numel()
+    if n:
+        with torch.cuda.device(dev):
+            lib = _lib()
+            fn = {"eval": lib.bsdf_eval, "sample": lib.bsdf_sample,
+                  "pdf": lib.bsdf_pdf}[call]
+            args = [(_Col * len(ccols))(*ccols), len(ccols), mask]
+            if call != "pdf":
+                args.append(flag)
+            err = fn(*args, n, *(o.data_ptr() for o in outs),
+                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"bsdf_{call} kernel launch failed: CUDA "
+                               f"error {err}")
+        LAUNCHES[call] += 1
+    return outs if call == "sample" else outs[0]

@@ -27,6 +27,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
+# the kernels every render on the card runs (the RNG's draw, the dense
+# intersection queries, the BSDF): the first of them to load builds all
+# three, in one nvcc round
+RENDER_KERNELS = ("rng", "dense_intersect", "bsdf")
+
 # name -> loaded library, and name -> (seconds, nvcc output) of the build
 # this process ran (absent when the library was already on disk)
 _LIBS: dict = {}

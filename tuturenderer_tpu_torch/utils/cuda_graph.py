@@ -8,9 +8,10 @@ keeps the capture's inputs and outputs alive and writes new inputs into
 them in place.
 
 The port counts its kernels' launches in Python
-(``ops/cuda/intersect.py::LAUNCHES``, ``utils/rng.py::LAUNCHES``), and a
-replay runs no Python. So the capture, which launches nothing, takes back
-what it counted, and each replay adds it. No span records while capturing.
+(``ops/cuda/intersect.py::LAUNCHES``, ``utils/rng.py::LAUNCHES``,
+``materials.py::LAUNCHES``), and a replay runs no Python. So the capture,
+which launches nothing, takes back what it counted, and each replay adds
+it. No span records while capturing.
 
 ``run`` drives the wavefronts of one render over this, as its frame
 (``integrators/frame.py``) schedules them: a scene keeps one capture an
@@ -35,20 +36,31 @@ import torch
 
 from . import profiling
 
-Counts = Tuple[Dict[str, int], int]
+# (intersection kernels by name, RNG draws, BSDF kernels by call)
+Counts = Tuple[Dict[str, int], int, Dict[str, int]]
 
 
 def _counts() -> Counts:
+    from .. import materials
     from ..ops.cuda import intersect
     from . import rng
-    return dict(intersect.LAUNCHES), rng.LAUNCHES
+    return dict(intersect.LAUNCHES), rng.LAUNCHES, dict(materials.LAUNCHES)
 
 
 def _set(counts: Counts) -> None:
+    from .. import materials
     from ..ops.cuda import intersect
     from . import rng
     intersect.LAUNCHES.update(counts[0])
     rng.LAUNCHES = counts[1]
+    materials.LAUNCHES.update(counts[2])
+
+
+def _add(a: Counts, b: Counts, sign: int = 1) -> Counts:
+    """``a`` + ``sign`` * ``b``, name by name."""
+    by_name = lambda x, y: {k: x.get(k, 0) + sign * y.get(k, 0)
+                            for k in x.keys() | y.keys()}
+    return by_name(a[0], b[0]), a[1] + sign * b[1], by_name(a[2], b[2])
 
 
 class Graph:
@@ -78,10 +90,7 @@ class Graph:
                         self.out = fn()
                     finally:
                         self.graph.capture_end()
-                kernels, draws = _counts()
-                self.launches = ({k: n - before[0].get(k, 0)
-                                  for k, n in kernels.items()},
-                                 draws - before[1])
+                self.launches = _add(_counts(), before, -1)
             finally:
                 torch.cuda.current_stream().wait_stream(stream)
                 _set(before)
@@ -89,9 +98,7 @@ class Graph:
     def replay(self) -> None:
         with torch.cuda.device(self.device):
             self.graph.replay()
-        kernels, draws = _counts()
-        _set(({k: kernels.get(k, 0) + n for k, n in self.launches[0].items()},
-              draws + self.launches[1]))
+        _set(_add(_counts(), self.launches))
 
 
 # ------------------------------------------------------- captured wavefronts

@@ -152,10 +152,9 @@ class _Word(ctypes.Structure):
 
 def _lib():
     from ..ops.cuda import build
-    # a render draws (the pixel jitter) before it queries a dense scene,
-    # so the first draw builds the dense intersection kernels beside the
-    # RNG's, in one nvcc round
-    lib = build.load_all(("rng", "dense_intersect"))["rng"]
+    # a render draws (the pixel jitter) before it queries a dense scene or
+    # shades, so the first draw builds the render's kernels in one round
+    lib = build.load_all(build.RENDER_KERNELS)["rng"]
     if lib.rng_uniform.argtypes is None:
         lib.rng_uniform.argtypes = [ctypes.POINTER(_Word), ctypes.c_int,
                                     ctypes.c_longlong, ctypes.c_void_p,
