@@ -217,6 +217,134 @@ def test_mesh_render_goes_through_the_cluster_kernels(dev, opts, nearest,
     assert got == want
 
 
+WALKS = {"nearest": C.cluster_intersect, "anyhit": C.cluster_occluded,
+         "transmit": C.cluster_transmittance}
+
+
+def _walk_args(dev, mode, n_rays=8192):
+    scene, o, d = _mesh(dev, n_rays=n_rays)
+    cl = scene.clusters
+    rays = [a[:, i].contiguous() for a in (o, d) for i in range(3)]
+    if mode == "nearest":
+        return cl, rays
+    t = C.cluster_intersect_plain(cl, *rays)[0]
+    dist = torch.where(t < 3e38, t, 10.0) * 1.5
+    return (_alpha_table(cl, dev) if mode == "transmit" else cl), \
+        rays + [dist]
+
+
+def _counted(fn, cl, args):
+    tests = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    nodes = torch.zeros_like(tests)
+    out = fn(cl, *args, test_count=tests, node_count=nodes)
+    return out, int(tests), int(nodes)
+
+
+@pytest.mark.parametrize("mode", sorted(WALKS))
+def test_walk_counters_change_no_output(dev, mode):
+    """K5/K6/K7 with their counters passed give bit-equal outputs to the
+    same launch without them."""
+    cl, args = _walk_args(dev, mode)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    uncounted = WALKS[mode](cl, *args)
+    counted, tests, nodes = _counted(WALKS[mode], cl, args)
+    if mode != "nearest":
+        uncounted, counted = (uncounted,), (counted,)
+    for u, c in zip(uncounted, counted):
+        assert torch.equal(bits(u), bits(c))
+    assert tests > 0 and nodes >= args[0].shape[0]
+
+
+@pytest.mark.parametrize("mode", sorted(WALKS))
+def test_warp_totals_equal_the_lanes_counts(dev, mode):
+    """The warp-aggregated totals of one launch equal the sum of each
+    lane's own count, taken by launching every ray alone (a lane's walk
+    does not depend on its warp's other lanes), over a count of rays that
+    leaves the last warp ragged."""
+    cl, args = _walk_args(dev, mode, n_rays=4096)
+    keep = torch.arange(0, args[0].shape[0], 37, device=dev)[:203]
+    args = [a[keep].contiguous() for a in args]
+    _, tests, nodes = _counted(WALKS[mode], cl, args)
+    lanes = [_counted(WALKS[mode], cl, [a[i:i + 1].contiguous()
+                                        for a in args])[1:]
+             for i in range(args[0].shape[0])]
+    assert (tests, nodes) == (sum(t for t, _ in lanes),
+                              sum(v for _, v in lanes))
+    assert nodes > len(lanes)
+
+
+def _walk_spans():
+    return [s for s in profiling.recorded()
+            if s.name in ("isect.nearest", "isect.anyhit", "isect.transmit")]
+
+
+@pytest.mark.parametrize("alpha", [False, True], ids=["anyhit", "transmit"])
+def test_walk_counts_ride_the_spans_only_while_recording(dev, monkeypatch,
+                                                         alpha):
+    """A mesh render's cluster queries pass the walk's counters while
+    spans record and carry them as ``visits`` and ``tests`` (every lane
+    visits the root at least); with nothing recording no query passes
+    them; a dense scene's spans carry none."""
+    from tuturenderer_tpu_torch.integrators import path
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    monkeypatch.setattr(cuda_graph, "ON", False)
+    passed = []
+    for name in ("cluster_intersect", "cluster_occluded",
+                 "cluster_transmittance"):
+        def wrap(real):
+            def call(*args, **kw):
+                passed.append(kw.get("node_count") is not None)
+                return real(*args, **kw)
+            return call
+        monkeypatch.setattr(TI, name, wrap(getattr(TI, name)))
+    scene, cam = sphere_showcase(32, 24, nu=46, nv=46, device=dev)
+    opts = RenderOptions(spp=2, max_depth=3, alpha_shadows=alpha)
+    with profiling.recording():
+        path.render(scene, cam, opts, 1)
+    walks = _walk_spans()
+    assert [s.name for s in walks].count(
+        "isect.transmit" if alpha else "isect.anyhit") == 2 * 4
+    assert len(walks) == 2 * 9 and passed == [True] * 18
+    for s in walks:
+        assert int(s.counts["visits"]) >= s.counts["lanes"] > 0
+        assert int(s.counts["tests"]) > 0
+    passed.clear()
+    path.render(scene, cam, opts, 1)
+    assert passed == [False] * 18 and len(_walk_spans()) == len(walks)
+    box, bcam = simple_box(32, 24, device=dev)
+    with profiling.recording():
+        path.render(box, bcam, RenderOptions(spp=1, max_depth=3), 1)
+    dense = _walk_spans()[len(walks):]
+    assert len(dense) == 9 and not any("visits" in s.counts or "tests" in
+                                       s.counts for s in dense)
+
+
+def test_a_graph_replay_counts_no_walk(dev, monkeypatch):
+    """The wavefront captured after a recorded (eager, counted) render
+    holds no counter: replays record no span and add nothing to the
+    counts the recorded spans hold, and their image is the eager one."""
+    from tuturenderer_tpu_torch.integrators import path
+    monkeypatch.setattr(profiling, "RECORDER", profiling.Recorder())
+    scene, cam = sphere_showcase(32, 24, nu=46, nv=46, device=dev)
+    opts = RenderOptions(spp=2, max_depth=3)
+    with profiling.recording():
+        want = path.render(scene, cam, opts, 1)
+    assert cuda_graph._CAPTURED[(id(scene), "path")].graph is not None
+    walks = _walk_spans()
+    counts = [(int(s.counts["visits"]), int(s.counts["tests"]))
+              for s in walks]
+    n_spans = len(profiling.recorded())
+    replays = cuda_graph.REPLAYED["path"]
+    got = [path.render(scene, cam, opts, 1) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert cuda_graph.REPLAYED["path"] - replays == 3 * 2
+    assert len(profiling.recorded()) == n_spans
+    assert [(int(s.counts["visits"]), int(s.counts["tests"]))
+            for s in walks] == counts
+    for g in got:
+        assert torch.equal(_bits(g), _bits(want))
+
+
 def test_cluster_wrapper_raises_on_a_wrong_length_table(dev):
     """A table whose BVH rows (K5/K6/K7) or Woop rows (K7's alphas) are
     cut short raises before any launch."""

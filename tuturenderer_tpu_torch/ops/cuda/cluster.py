@@ -23,8 +23,9 @@ transmittances that differ only by the order of the product.
 
 ``test_count`` and ``node_count`` (optional int64 [1] tensors on the rays'
 device) receive the number of ray/triangle tests and of BVH node visits
-(two box tests each; the plain versions visit none): diagnostics, not
-passed on the main path. The launches are counted in ``LAUNCHES`` (shared
+(two box tests each; the plain versions visit none), added by one atomic a
+warp: ``ops/intersect.py`` passes them while spans record, and nothing
+else on the main path does. The launches are counted in ``LAUNCHES`` (shared
 with the dense kernels) under ``cluster_nearest``, ``cluster_anyhit`` and
 ``cluster_transmit``.
 """

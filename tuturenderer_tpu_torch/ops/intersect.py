@@ -24,7 +24,14 @@ Each query is a span of ``utils/profiling.py`` (``isect.nearest``,
 every integrator's queries pass; while spans record, a query's span
 carries the lanes it was launched with and the lanes its mask lets
 through: two launches more a masked query on the card (the mask's cast to
-int64 and its sum), and no sync.
+int64 and its sum), and no sync. On the card a cluster query's span also
+carries the BVH walk's ``visits`` (node visits) and ``tests`` (ray/triangle
+tests), summed over every lane the kernel was launched with, a dead lane
+included (its one visit of the root): 0-d int64 device tensors that the
+kernel adds into, one launch more (their zeroing). While nothing records
+the kernels get no counters, so a CUDA graph captures none. The dense
+kernels and the plain versions visit no node, and their spans carry
+neither.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..scene.data import SPHERE, TRIANGLE, SceneData
-from ..utils.profiling import count_lanes, span, spanned
+from ..utils.profiling import OFF, count_lanes, span, spanned
 from ..utils.vec import Vec3, where as vwhere
 from .cuda.cluster import (cluster_intersect, cluster_occluded,
                            cluster_transmittance)
@@ -150,20 +157,36 @@ def _dense(nearest: bool, scene: SceneData):
     raise ValueError(f"DENSE_KERNEL {DENSE_KERNEL!r}: 'woop' or 'mt'")
 
 
+def _walk_counters(sp, device) -> dict:
+    """The cluster kernels' counters while ``sp`` records on the card:
+    {"test_count", "node_count"}, int64 [1] views of one zeroed tensor,
+    whose elements the span carries as ``tests`` and ``visits``; else {}
+    (the kernels count nothing)."""
+    if not sp.on or device.type != "cuda":
+        return {}
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    sp.count("visits", counts[0])
+    sp.count("tests", counts[1])
+    return {"node_count": counts[0:1], "test_count": counts[1:2]}
+
+
 def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
                    mask=None) -> HitCore:
     """Nearest hit of each ray against the whole scene. ``mask`` (optional
     bool [N]): lanes with mask=False are traced as never-hit rays."""
     with span("isect.nearest") as sp:
         count_lanes(sp, orig.x.shape[0], mask)
-        return _nearest(scene, orig, d, mask)
+        return _nearest(scene, orig, d, mask, sp)
 
 
-def _nearest(scene: SceneData, orig: Vec3, d: Vec3, mask=None) -> HitCore:
+def _nearest(scene: SceneData, orig: Vec3, d: Vec3, mask=None,
+             sp=OFF) -> HitCore:
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
     if scene.clusters is not None:
-        t, idx, bu, bv = cluster_intersect(scene.clusters, *_rays(orig, d))
+        t, idx, bu, bv = cluster_intersect(
+            scene.clusters, *_rays(orig, d),
+            **_walk_counters(sp, orig.x.device))
         best = HitCore(t=t, kind=torch.zeros_like(idx), idx=idx, bu=bu, bv=bv)
     elif scene.n_tris:
         kernel, table = _dense(True, scene)
@@ -191,10 +214,11 @@ def occluded(scene: SceneData, orig: Vec3, d: Vec3, dist,
     False) become degenerate rays with dist 0 and report unblocked."""
     with span("isect.anyhit") as sp:
         count_lanes(sp, orig.x.shape[0], mask)
-        return _occluded(scene, orig, d, dist, mask)
+        return _occluded(scene, orig, d, dist, mask, sp)
 
 
-def _occluded(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None):
+def _occluded(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None,
+              sp=OFF):
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
         dist = torch.where(mask, dist, 0.0)
@@ -204,7 +228,8 @@ def _occluded(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None):
             ((core.t - dist).abs() >= PARALLEL_EPS)
     if scene.clusters is not None:
         blocked = cluster_occluded(scene.clusters, *_rays(orig, d),
-                                   dist.detach().contiguous())
+                                   dist.detach().contiguous(),
+                                   **_walk_counters(sp, orig.x.device))
     else:
         kernel, table = _dense(False, scene)
         blocked = kernel(table, *_rays(orig, d), dist.detach().contiguous())
@@ -226,10 +251,11 @@ def transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist,
     transmittance 1."""
     with span("isect.transmit") as sp:
         count_lanes(sp, orig.x.shape[0], mask)
-        return _transmittance(scene, orig, d, dist, mask)
+        return _transmittance(scene, orig, d, dist, mask, sp)
 
 
-def _transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None):
+def _transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None,
+                   sp=OFF):
     n = orig.x.shape[0]
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
@@ -237,7 +263,8 @@ def _transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist, mask=None):
 
     if scene.clusters is not None:
         trans = cluster_transmittance(scene.clusters, *_rays(orig, d),
-                                      dist.detach().contiguous())
+                                      dist.detach().contiguous(),
+                                      **_walk_counters(sp, orig.x.device))
         if scene.n_spheres:
             trans = trans * _sphere_transmittance(scene, orig, d, dist)
         return trans
